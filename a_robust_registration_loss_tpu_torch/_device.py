@@ -1,0 +1,37 @@
+"""Device resolution and the fp32 policy of the port.
+
+The JAX package pins HIGHEST matmul precision on the whole geometry/metric
+path (ops/metric.py, ops/geometry.py, se3/se3.py): a rounded rigid
+transform moves stage-1 labels and kNN/FPS orderings. The CUDA counterpart
+of that pin is TF32 off for matmuls and cuDNN, set here once for the
+process when the port is imported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def sqrt_rn(x):
+    """Correctly rounded fp32 square root on every device. CUDA's sqrt is
+    IEEE; PyTorch's vectorised CPU sqrt is not always (on some inputs it
+    is one ulp off the rounded result), so the CPU takes it in float64 and
+    rounds once, which is exact for a square root. Used where a
+    label depends on the last bit (thresholds, barycentric areas)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def resolve(device=None) -> torch.device:
+    """``None`` means the GPU. A CUDA device that is not there raises: the
+    port never carries on on the CPU unless asked to with ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev

@@ -1,0 +1,142 @@
+"""Geometry primitives of the classical registration path: pairwise
+distances, FPS, k-NN, FPS+kNN neighbourhoods, bounding boxes and their
+12-triangle meshes, chamfer distance.
+
+Port of the subset of ``a_robust_registration_loss_tpu/ops/geometry.py``
+that the classical step runs. Indices follow the JAX package exactly: FPS
+takes the first argmax (``torch.argmax`` does too), and kNN keeps
+``lax.top_k``'s tie order, lower index first, through a stable ascending
+sort (``torch.topk`` leaves the order of ties unspecified). Indices are
+int64, PyTorch's index type.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def square_distance(src, dst):
+    """(..., N, C) x (..., M, C) -> (..., N, M) squared euclidean distances
+    via the inner-product expansion (fp32 matmul: TF32 is off)."""
+    d = -2.0 * (src @ dst.transpose(-1, -2))
+    d = d + (src**2).sum(-1)[..., :, None]
+    d = d + (dst**2).sum(-1)[..., None, :]
+    return d
+
+
+def index_points(points, idx):
+    """Per-batch-row gather: points (B, N, C), idx (B, ...) -> (B, ..., C)."""
+    B = points.shape[0]
+    flat = idx.reshape(B, -1)
+    out = torch.gather(points, 1, flat[..., None].expand(-1, -1, points.shape[-1]))
+    return out.reshape(idx.shape + (points.shape[-1],))
+
+
+def farthest_point_sample(xyz, npoint: int, start_idx=None):
+    """Greedy farthest-point sampling: xyz (B, N, 3) -> (B, npoint) int64.
+
+    Seeds at ``start_idx`` ((B,) or None for 0). A Python loop of npoint
+    steps with no host sync: the running argmax stays on the device."""
+    B, N, _ = xyz.shape
+    if start_idx is None:
+        farthest = torch.zeros(B, dtype=torch.long, device=xyz.device)
+    else:
+        farthest = torch.as_tensor(start_idx, device=xyz.device).long()
+    centroids = torch.empty((B, npoint), dtype=torch.long, device=xyz.device)
+    distance = torch.full((B, N), 1e10, dtype=xyz.dtype, device=xyz.device)
+    rows = torch.arange(B, device=xyz.device)
+    for i in range(npoint):
+        centroids[:, i] = farthest
+        centroid = xyz[rows, farthest][:, None, :]
+        dist = ((xyz - centroid) ** 2).sum(-1)
+        distance = torch.minimum(distance, dist)
+        farthest = torch.argmax(distance, dim=-1)
+    return centroids
+
+
+def sample_points(points, npoints: int, start_idx=None):
+    """FPS-select npoints rows of points (B, N, C)."""
+    return index_points(points, farthest_point_sample(points, npoints,
+                                                      start_idx))
+
+
+def knn_points(query, points, k: int):
+    """Brute-force k-NN: query (..., S, 3), points (..., N, 3) ->
+    (dists (..., S, k), idx (..., S, k)), ascending, ties lower index
+    first."""
+    d = square_distance(query, points)
+    srt = torch.sort(d, dim=-1, stable=True)
+    return srt.values[..., :k], srt.indices[..., :k]
+
+
+def sample_neighs(points, num_sample: int = 5000, num_neigh: int = 3,
+                  start_idx=None):
+    """FPS-sample num_sample seeds, k-NN each against the full cloud, and
+    return the flattened (num_sample*num_neigh, 3) neighbourhood array,
+    row-major [n0_of_s0, n1_of_s0, n2_of_s0, n0_of_s1, ...]. The first
+    neighbour of each seed is the seed itself."""
+    pts = points[None] if points.ndim == 2 else points
+    n = min(num_sample, pts.shape[1])
+    seeds = sample_points(pts, n, start_idx)
+    _, idx = knn_points(seeds, pts, num_neigh)
+    neigh = index_points(pts, idx.reshape(pts.shape[0], -1))
+    neigh = neigh.reshape(pts.shape[0], n * num_neigh, 3)
+    return neigh[0] if points.ndim == 2 else neigh
+
+
+def bounding_box_corners(vertices):
+    """8 AABB corners, (B, N, 3) -> (B, 8, 3): corner 0 is the max, corner 7
+    the min, so ||c0 - c7|| is the diagonal. Corner a*4 + b*2 + c takes x, y,
+    z from the max (bit 0) or the min (bit 1)."""
+    bits, _ = _bbox_tables(vertices.device)
+    mn = vertices.amin(dim=1)[..., None, :]
+    mx = vertices.amax(dim=1)[..., None, :]
+    return torch.where(bits, mn, mx)
+
+
+# Fixed 12-triangle topology over the 8 bbox corners.
+BBOX_FACES = np.array(
+    [[2, 0, 6], [0, 4, 6], [5, 4, 0], [5, 0, 1], [6, 4, 5], [5, 7, 6],
+     [3, 0, 2], [1, 0, 3], [3, 2, 6], [6, 7, 3], [5, 1, 3], [3, 7, 5]],
+    dtype=np.int32,
+)
+
+
+def make_face_vertices(vertices, faces):
+    """Gather faces (B, F, 3) of vertex indices from vertices (B, V, 3)
+    into (B, F, 9) coordinate 9-tuples."""
+    B = vertices.shape[0]
+    idx = faces.reshape(B, -1, 1).long().expand(-1, -1, 3)
+    gathered = torch.gather(vertices, 1, idx)
+    return gathered.reshape(B, faces.shape[-2], 9)
+
+
+def bbox_face_vertices(vertices):
+    """AABB corners -> the 12-triangle face-vertex tensor (B, 12, 9) of the
+    line resampler's coarse hit test."""
+    _, faces = _bbox_tables(vertices.device)
+    corners = bounding_box_corners(vertices)
+    return corners[:, faces].reshape(vertices.shape[0], 12, 9)
+
+
+@functools.lru_cache(maxsize=None)
+def _bbox_tables(device):
+    """The corner bits (8, 3) and the flat face-corner indices (36,) on
+    ``device``, copied there once: a copy from pageable host memory
+    synchronises the stream, and the bounding boxes are taken every step."""
+    bits = torch.tensor([[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)],
+                        dtype=torch.bool)
+    faces = torch.as_tensor(BBOX_FACES.reshape(-1), dtype=torch.long)
+    return bits.to(device), faces.to(device)
+
+
+def chamfer_distance(points_x, points_y):
+    """Mean over the concatenation of the two directions' nearest-neighbour
+    squared distances: points_x (B, M, 3), points_y (B, N, 3)."""
+    sqrdis = square_distance(points_x, points_y)
+    d1 = sqrdis.amin(dim=2).reshape(-1)
+    d2 = sqrdis.amin(dim=1).reshape(-1)
+    return torch.cat([d1, d2]).mean()

@@ -1,0 +1,270 @@
+"""Classical single-pair SE(3) registration with the robust metric.
+
+Port of ``a_robust_registration_loss_tpu/train/classical.py``: optimise a
+6-DoF twist with Adam so that the transformed source cloud's intersection
+metric against the target is minimised. Per epoch: resample lines against
+the bounding boxes of the previously transformed source and the target,
+evaluate the rigid metric, differentiate through ``se3.exp3``, and take an
+Adam step that is frozen (params, both moments and the count) on an epoch
+with no usable line.
+
+Semantics kept from the JAX package: the twist init (random unit axis *
+0.001, 0.001 * N(0, 1) translation, or a perturbed log of a given (R, t));
+``points @ R + t``; the lr 2e-2 halved every 1000 epochs *including epoch
+0*; chamfer distance as the independent check metric.
+
+PyTorch idiom: the step is a plain function, ``run`` a Python loop over
+steps with no host sync inside a step; all randomness comes from one
+``torch.Generator``. The step carry is ``(params, AdamState, src_prev)``,
+as the JAX carry is ``(params, opt_state, src_prev)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from a_robust_registration_loss_tpu_torch import _device
+from a_robust_registration_loss_tpu_torch.ops import geometry as G
+from a_robust_registration_loss_tpu_torch.ops import lines as LN
+from a_robust_registration_loss_tpu_torch.ops import metric as M
+from a_robust_registration_loss_tpu_torch.se3 import se3
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassicalConfig:
+    n_epochs: int = 1000
+    n_lines: int = 20000
+    num_sample: int = 5000        # FPS seeds for the neighbourhoods
+    lr: float = 2e-2
+    lr_halve_every: int = 1000
+    kmin: int = 1
+    kmax: int = 4
+    log_every: int = 10           # epochs per block between host fetches
+    seed: int = 123
+    compute_chamfer: bool = True
+
+
+class AdamState(NamedTuple):
+    """optax.adam's state: one count (the moment and schedule counts move
+    together) and the two moments."""
+    count: torch.Tensor  # () int32
+    mu: torch.Tensor     # (6,)
+    nu: torch.Tensor     # (6,)
+
+
+def init_twist(generator, rotation=None, translation=None):
+    """Twist init: 0.001 * random unit axis and 0.001 * N(0, 1)
+    translation, or the log of a given (R, t) plus U(0, 0.6) noise. The
+    generator's device is the twist's device."""
+    dev = generator.device
+    if rotation is None or translation is None:
+        axis = torch.randn(3, generator=generator, device=dev)
+        axis = axis / torch.linalg.vector_norm(axis)
+        trans = torch.randn(3, generator=generator, device=dev) * 0.001
+        return torch.cat([0.001 * axis, trans])
+    g = torch.eye(4, device=dev)
+    g[:3, :3] = torch.as_tensor(rotation, dtype=torch.float32, device=dev).reshape(3, 3)
+    g[:3, 3] = torch.as_tensor(translation, dtype=torch.float32, device=dev).reshape(3)
+    perturb = torch.rand(6, generator=generator, device=dev) * 0.6
+    return se3.log(g).reshape(-1) + perturb
+
+
+def init_adam(params) -> AdamState:
+    return AdamState(torch.zeros((), dtype=torch.int32, device=params.device),
+                     torch.zeros_like(params), torch.zeros_like(params))
+
+
+def from_jax_state(params, opt_state, device=None):
+    """The JAX twist and optax Adam state -> the port's (params, AdamState).
+
+    params: the (6,) twist; opt_state: (count, mu, nu) as numpy arrays, the
+    fields of optax's ScaleByAdamState."""
+    dev = _device.resolve(device)
+    count, mu, nu = opt_state
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return f32(params).reshape(6), AdamState(
+        torch.tensor(np.asarray(count, np.int32), device=dev).reshape(()),
+        f32(mu).reshape(6), f32(nu).reshape(6))
+
+
+def apply_twist(params, points, point_neis):
+    """points @ R + t on the cloud and its flattened neighbourhoods."""
+    R, t = se3.exp3(params.reshape(6))
+    pts = points @ R + t
+    neis = (point_neis.reshape(-1, 3) @ R + t).reshape(point_neis.shape)
+    return pts, neis
+
+
+def prepare_pair(src_vertices, tar_vertices, cfg: ClassicalConfig,
+                 device=None):
+    """FPS + 3-NN neighbourhoods of both clouds, mean centring, target bbox
+    radius, on the device. Returns a dict of tensors."""
+    dev = _device.resolve(device)
+    src = torch.as_tensor(np.asarray(src_vertices, np.float32), device=dev)
+    tar = torch.as_tensor(np.asarray(tar_vertices, np.float32), device=dev)
+    neis_src = G.sample_neighs(src, cfg.num_sample, 3)
+    neis_tar = G.sample_neighs(tar, cfg.num_sample, 3)
+    c1 = src.mean(0, keepdim=True)
+    c2 = tar.mean(0, keepdim=True)
+    src, tar = src - c1, tar - c2
+    neis_src = neis_src - c1
+    neis_tar = neis_tar - c2
+    bbox = G.bounding_box_corners(tar[None])[0]
+    return dict(
+        src=src, tar=tar,
+        neis_src=neis_src.reshape(-1, 9),
+        neis_tar=neis_tar.reshape(-1, 9),
+        radius=torch.linalg.vector_norm(bbox[0] - bbox[-1]),
+        center=tar.mean(0),
+        center_src=c1, center_tar=c2,
+    )
+
+
+def lr_schedule(cfg: ClassicalConfig):
+    """lr halved at every multiple of lr_halve_every INCLUDING step 0."""
+    def fn(step):
+        return cfg.lr * 0.5 ** (1 + step // cfg.lr_halve_every)
+    return fn
+
+
+def adam_update(cfg: ClassicalConfig, params, opt: AdamState, grads, valid):
+    """One optax.adam step, written out, frozen where ``valid`` is False:
+    params, both moments and the count stay as they were."""
+    mu = (1 - ADAM_B1) * grads + ADAM_B1 * opt.mu
+    nu = (1 - ADAM_B2) * (grads * grads) + ADAM_B2 * opt.nu
+    count_inc = opt.count + 1
+    mu_hat = mu / (1 - ADAM_B1 ** count_inc)
+    nu_hat = nu / (1 - ADAM_B2 ** count_inc)
+    updates = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+    step_size = -1 * lr_schedule(cfg)(opt.count)  # lr at the pre-increment count
+    new_params = params + step_size * updates
+    return (torch.where(valid, new_params, params),
+            AdamState(torch.where(valid, count_inc, opt.count),
+                      torch.where(valid, mu, opt.mu),
+                      torch.where(valid, nu, opt.nu)))
+
+
+def update(cfg: ClassicalConfig, data, carry, lines):
+    """One epoch on given lines: metric, gradient, masked Adam step.
+    carry = (params, AdamState, src_prev) -> (carry, metrics)."""
+    params, opt, _ = carry
+    p = params.detach().requires_grad_(True)
+    R, t = se3.exp3(p)
+    loss, valid = M.intersection_loss_rigid(
+        R, t, data["neis_src"], data["neis_tar"], lines, cfg.kmin, cfg.kmax)
+    (grads,) = torch.autograd.grad(loss, p, allow_unused=True)
+    with torch.no_grad():
+        grads = torch.zeros_like(p) if grads is None else grads
+        src_t = data["src"] @ R + t
+        params, opt = adam_update(cfg, params, opt,
+                                  torch.where(valid, grads, 0.0), valid)
+        if cfg.compute_chamfer:
+            chamfer = G.chamfer_distance(src_t[None], data["tar"][None])
+        else:
+            chamfer = torch.zeros((), device=src_t.device)
+    return (params, opt, src_t), dict(loss=loss.detach(), chamfer=chamfer,
+                                      valid=valid)
+
+
+def make_step(cfg: ClassicalConfig, data):
+    """The single-epoch step: ``step(carry, u4) -> (carry, metrics)``, with
+    u4 the (4, ROUNDS * n_lines) uniforms of the epoch's resampling against
+    the bbox of the previously transformed source (carry[2])."""
+    def step(carry, u4):
+        lines = LN.resample_lines(u4, data["radius"], data["center"],
+                                  cfg.n_lines, carry[2], data["tar"])
+        return update(cfg, data, carry, lines)
+    return step
+
+
+def run(src_vertices, tar_vertices, cfg: ClassicalConfig = ClassicalConfig(),
+        callback=None, init_params=None, device=None):
+    """Full optimisation. ``callback(epoch, params, metrics, src_transformed)``
+    (host values) fires once per block of cfg.log_every epochs, one block
+    late so its fetch overlaps the next block's work. Returns (params, history
+    dict of per-epoch metric arrays)."""
+    dev = _device.resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    data = prepare_pair(src_vertices, tar_vertices, cfg, dev)
+    if init_params is None:
+        params = init_twist(gen)
+    else:
+        params = torch.as_tensor(np.asarray(init_params, np.float32),
+                                 device=dev).reshape(6)
+    carry = (params, init_adam(params), data["src"])
+    step = make_step(cfg, data)
+    n_cand = LN.ROUNDS * cfg.n_lines
+
+    history = []
+    pending = None
+    done = 0
+    while done < cfg.n_epochs:
+        # the final block runs only the remaining epochs
+        block = []
+        for _ in range(min(cfg.log_every, cfg.n_epochs - done)):
+            u4 = torch.rand((4, n_cand), generator=gen, device=dev)
+            carry, metrics = step(carry, u4)
+            block.append(metrics)
+        done += len(block)
+        if pending is not None:
+            _flush(pending, history, callback)
+        pending = (done, carry[0],
+                   {k: torch.stack([m[k] for m in block]) for k in block[0]},
+                   carry[2])
+    if pending is not None:
+        _flush(pending, history, callback)
+    hist = {k: np.concatenate([h[k] for h in history]) for k in history[0]}
+    return carry[0], hist
+
+
+def _flush(pending, history, callback):
+    """Fetch a finished block's metrics to the host (one sync per block)
+    and fire the callback with host values."""
+    done, params, metrics, src_t = pending
+    metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+    history.append(metrics)
+    if callback is not None:
+        callback(done, params.cpu().numpy(),
+                 {k: v[-1] for k, v in metrics.items()}, src_t.cpu().numpy())
+
+
+def final_transform(params):
+    """(R, t) of the optimised twist, plus the 3x4 [R | t] matrix, in numpy
+    float64 (the same math as se3.exp3: Rodrigues + V, sinc Taylor
+    branches)."""
+    if isinstance(params, torch.Tensor):
+        params = params.detach().cpu().numpy()
+    x = np.asarray(params, np.float64).reshape(6)
+    w, v = x[:3], x[3:]
+    t = float(np.linalg.norm(w))
+    W = np.array([[0.0, -w[2], w[1]],
+                  [w[2], 0.0, -w[0]],
+                  [-w[1], w[0], 0.0]])
+    S = W @ W
+    if t < 0.01:  # the sinc Taylor cutoff (se3/sinc.py)
+        t2 = t * t
+        s1 = 1 - t2 / 6 * (1 - t2 / 20 * (1 - t2 / 42))
+        s2 = 0.5 * (1 - t2 / 12 * (1 - t2 / 30 * (1 - t2 / 56)))
+        s3 = (1 / 6) * (1 - t2 / 20 * (1 - t2 / 42 * (1 - t2 / 72)))
+    else:
+        s1 = np.sin(t) / t
+        s2 = (1 - np.cos(t)) / (t * t)
+        s3 = (t - np.sin(t)) / (t * t * t)
+    I = np.eye(3)
+    R = I + s1 * W + s2 * S
+    V = I + s2 * W + s3 * S
+    p = V @ v
+    out = np.ones((3, 4), np.float64)
+    out[:3, :3] = R
+    out[:3, 3] = p
+    return R.astype(np.float32), p.astype(np.float32), out
