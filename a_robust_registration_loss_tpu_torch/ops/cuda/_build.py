@@ -8,7 +8,7 @@ launches a kernel calls ``library()``. The sources compile in parallel, one
 ``nvcc`` each, then link. A stamp of the sources' and flags' hash decides
 whether an existing library is reused.
 
-No ``--use_fast_math`` and ``-fmad=false``: both kernels need IEEE fp32
+No ``--use_fast_math`` and ``-fmad=false``: the kernels need IEEE fp32
 with every multiply and add rounded on its own (see the notes in the
 sources).
 """
@@ -35,8 +35,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "arrl_stage1_pair": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    "arrl_stage1": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
+                    _P, _P, _P, _P, _P, _P],
     "arrl_resample": [_P, _I, _P, _P, _P, _P, _P],
+    "arrl_logistic": [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -6,12 +6,16 @@ installed; the suite's conftest.py imports JAX, hence ``--noconftest``:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Bars: stage 1 counts, slot indices and slot coordinates exactly equal (both
-sides round every operation on its own); resampler candidate geometry within
-1e-4, at most 0.1% of labels differing and acceptance within 10% (the bars
-the JAX package holds its own two resampler paths to); each wrapper call
-counts one launch; the rigid metric on the card within 1e-4 relative (loss)
-and 5e-4 relative L2 (gradient) of the plain path on the CPU.
+Bars: stage 1 in every mode, one or two clouds, unbatched and batched:
+counts, slot indices, d2, recon and slot coordinates exactly equal (both
+sides round every operation on its own), and a batched launch equal to B
+single launches; the rate probe exactly equal to its plain version;
+resampler candidate geometry within 1e-4, at most 0.1% of labels differing
+and acceptance within 10% (the bars the JAX package holds its own two
+resampler paths to); each wrapper call counts one launch; the metrics on
+the card (rigid, batched generic, the trainers' batched rigid glue) within
+1e-4 relative (loss) and 5e-4 relative L2 (gradient) of the plain path on
+the CPU.
 """
 
 import numpy as np
@@ -22,9 +26,11 @@ from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
+from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
 from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import classical as TC
+from a_robust_registration_loss_tpu_torch.train import losses as LS
 
 torch.set_num_threads(1)
 
@@ -168,3 +174,106 @@ def test_run_and_register_on_card(cuda_device, tmp_path):
                    "--num_sample", "256"])
     T = np.loadtxt(out)
     assert T.shape == (3, 4) and np.isfinite(T).all()
+
+
+MODES = [(d2, recon, pts) for d2 in (False, True) for recon in (False, True)
+         for pts in (False, True)]
+
+
+def _batch(B, f1, f2, n_lines):
+    """B problems of one shape, stacked on the CPU."""
+    probs = [_problem(f1, f2, n_lines, seed=10 + b) for b in range(B)]
+    return tuple(torch.stack([p[k] for p in probs]) for k in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("flags", MODES, ids=lambda f: "d2%d-recon%d-pts%d" % f)
+def test_stage1_modes_match_plain(cuda_device, flags, batched):
+    """Every mode, one and two clouds: the kernel's outputs equal the plain
+    version's bit for bit, one launch per call, counted per mode."""
+    n1, n2, lines = _batch(3, 200, 170, 300) if batched else _problem(333, 301, 257)
+    n1, n2, lines = (x.to(cuda_device) for x in (n1, n2, lines))
+    d1, d2 = M.neighborhood_delta(n1), M.neighborhood_delta(n2)
+    for neis, deltas in (((n1,), (d1,)), ((n1, n2), (d1, d2))):
+        before, modes = IK.launches, dict(IK.mode_launches)
+        got = IK.stage1(neis, lines, deltas, emit_d2=flags[0], emit_recon=flags[1],
+                        emit_pts=flags[2])
+        assert IK.launches == before + 1
+        for name, on in zip(("d2", "recon", "pts"), flags):
+            assert IK.mode_launches[name] == modes[name] + int(on)
+        ref = IK.stage1_reference(neis, lines, deltas, emit_d2=flags[0],
+                                  emit_recon=flags[1], emit_pts=flags[2])
+        assert int(ref[0].sum()) > 0
+        for g, r in zip(got, ref):
+            assert (g is None and r is None) or torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_stage1_batch_equals_single_launches(cuda_device):
+    n1, n2, lines = (x.to(cuda_device) for x in _batch(4, 300, 280, 1000))
+    d1, d2 = M.neighborhood_delta(n1), M.neighborhood_delta(n2)
+    kw = dict(emit_d2=True, emit_recon=True, emit_pts=True)
+    got = IK.stage1((n1, n2), lines, (d1, d2), **kw)
+    for b in range(4):
+        one = IK.stage1((n1[b], n2[b]), lines[b], (d1[b], d2[b]), **kw)
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", PB.CHAINS)
+def test_probe_matches_plain(cuda_device, chains):
+    x = torch.rand(10_000, generator=torch.Generator().manual_seed(chains)) * 0.6 + 0.05
+    x = x.to(cuda_device)
+    before = PB.launches
+    got = PB.logistic_map(x, 2, chains)
+    assert PB.launches == before + 1
+    assert torch.equal(got, PB.logistic_map_reference(x, 2, chains))
+    rate, ms = PB.measured_fp32_rate(n=1 << 16, iters=8, chains=chains, reps=2)
+    assert rate > 0 and ms > 0
+
+
+@pytest.mark.cuda
+def test_generic_metric_and_glue_on_card(cuda_device):
+    """find_intersections, intersection_loss_batch (forward and gradient)
+    and _metric_batch_rt on the card: one stage-1 launch each, and the CPU
+    plain path's values and gradients."""
+    n1, n2, lines = _batch(3, 300, 280, 1000)
+    R = torch.stack([se3.exp3(torch.tensor([0.02 * b, -0.01, 0.03, 0.01, 0.0, -0.02]))[0]
+                     for b in range(3)])
+    t = torch.tensor([[0.01, 0.0, -0.02]] * 3)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        a = n1.to(dev).requires_grad_(True)
+        before = IK.launches
+        inter = M.find_intersections(a, lines.to(dev))
+        losses, valid = M.intersection_loss_batch(a, n2.to(dev), lines.to(dev))
+        (g,) = torch.autograd.grad(torch.where(valid, losses, 0.0).mean(), a)
+        Rd, td = R.to(dev).requires_grad_(True), t.to(dev).requires_grad_(True)
+        per = LS._metric_batch_rt(Rd, td, n1.to(dev), n2.to(dev), lines.to(dev), LS.LossConfig())
+        gR, gt = torch.autograd.grad(per.sum(), (Rd, td))
+        if dev.type == "cuda":
+            assert IK.launches == before + 3
+        assert bool(valid.all()) and bool((per > 0).all())
+        out[dev.type] = (inter.count.cpu(), losses.detach().cpu().numpy(), g.cpu().numpy(),
+                         per.detach().cpu().numpy(),
+                         np.concatenate([gR.cpu().numpy().ravel(), gt.cpu().numpy().ravel()]))
+    (ck, lk, gk, pk, grk), (cp, lp, gp, pp, grp) = out["cuda"], out["cpu"]
+    assert torch.equal(ck, cp)
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    np.testing.assert_allclose(pk, pp, rtol=1e-4)
+    assert np.linalg.norm(gk - gp) <= 5e-4 * np.linalg.norm(gp)
+    assert np.linalg.norm(grk - grp) <= 5e-4 * np.linalg.norm(grp)
+
+
+@pytest.mark.cuda
+def test_batched_wrappers_raise_on_what_they_cannot_take(cuda_device):
+    lines = torch.zeros((2, 5, 6), device=cuda_device)
+    n = torch.zeros((3, 4, 9), device=cuda_device)  # batch 3 against 2
+    with pytest.raises(ValueError):
+        IK.intersect_stage1(n, lines, torch.zeros((3, 4), device=cuda_device))
+    with pytest.raises(ValueError):
+        IK.intersect_stage1(n[:2], lines, torch.zeros((2, 5), device=cuda_device))
+    with pytest.raises(ValueError):
+        PB.logistic_map(torch.ones(8, device=cuda_device), 1, chains=3)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from a_robust_registration_loss_tpu_torch.ops import metric as M
+from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
 from a_robust_registration_loss_tpu_torch.train import classical as TC
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,6 +51,9 @@ def test_importing_the_port_loads_no_jax():
             "import a_robust_registration_loss_tpu_torch.register\n"
             "import a_robust_registration_loss_tpu_torch.train.classical\n"
             "import a_robust_registration_loss_tpu_torch.data.plyio\n"
+            "import a_robust_registration_loss_tpu_torch.ops.metric\n"
+            "import a_robust_registration_loss_tpu_torch.ops.cuda.probe\n"
+            "import a_robust_registration_loss_tpu_torch.train.losses\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'a_robust_registration_loss_tpu')]\n"
             "assert not bad, bad\n")
@@ -68,3 +73,16 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         TC.prepare_pair(pts, pts, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TC.from_jax_state(np.zeros(6), (0, np.zeros(6), np.zeros(6)))
+
+
+def test_probe_and_metric_refuse_a_missing_card(monkeypatch):
+    """The rate probe measures the card or fails; stage 1 on a device that
+    is neither the CPU nor a card raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PB.measured_fp32_rate(n=8, iters=1)
+    with pytest.raises(ValueError):
+        PB.measured_fp32_rate(n=8, iters=1, device="cpu")
+    x = torch.zeros((4, 9), device="meta")
+    with pytest.raises(ValueError):
+        M.find_intersections(x, torch.zeros((3, 6), device="meta"))
