@@ -38,7 +38,7 @@ SIGNATURES = {
     "arrl_stage1": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                     _P, _P, _P, _P, _P, _P],
     "arrl_resample": [_P, _I, _P, _P, _P, _P, _P],
-    "arrl_logistic": [_P, _P, _I, _I, _I, _P],
+    "arrl_logistic": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

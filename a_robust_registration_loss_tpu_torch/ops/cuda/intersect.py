@@ -4,8 +4,8 @@ its plain PyTorch version.
 Replaces the TPU kernel ``a_robust_registration_loss_tpu/ops/pallas/
 intersect.py:_kernel`` in every combination of its three output modes, for
 one cloud (``intersect_stage1``) or both clouds of a pair against one line
-set (``intersect_stage1_pair``, and ``intersect_stage1_pair_pts`` for the
-rigid path). For every (line, neighbourhood) pair:
+set (``intersect_stage1_pair``; the rigid path calls the raw ``stage1``).
+For every (line, neighbourhood) pair:
 
     d2_i = |p_i - x0|^2 - ((p_i - x0) . dir)^2   (per component, in order)
     hit  = all_i d2_i < thr2,  thr2 = (delta * 1.731/2)^2 - 2e-4
@@ -23,9 +23,10 @@ rather than the TPU's lane-major one. Kernel and plain version agree
 exactly; the plain version walks the lines in chunks so that it never holds
 an O(L*F) tensor at full size either, and makes one PyTorch op per rounding.
 
-Launch counters: ``launches`` counts every kernel launch, ``mode_launches``
-the launches that emitted each mode (a launch with two modes on counts for
-both). Plain runs are not counted.
+Launch counter: ``launches`` counts the kernel launches of each
+instantiation, keyed by ``instantiation(clouds, emit_d2, emit_recon,
+emit_pts)``, so that the counts of all keys add up to the launches made.
+Plain runs are not counted.
 
 Bound on the H100: fp32 operations, 48 per (line, neighbourhood) pair
 (``OPS_PER_PAIR``) plus 33 per stored slot in recon mode
@@ -34,6 +35,8 @@ reports the bound beside the measured time.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -47,8 +50,13 @@ OPS_PER_RECON_SLOT = 33  # 3 x (add, max, sqrt), 2 add, 1 div, 3 mul, 9 x (mul, 
 LINE_CHUNK = 1024       # lines per step of the plain version
 EMPTY = 2**30           # slot_idx of an empty slot in the intersect_stage1* API
 
-launches = 0  # kernel launches since the last reset (plain runs not counted)
-mode_launches = {"d2": 0, "recon": 0, "pts": 0}  # launches that emitted each mode
+# kernel launches by instantiation since the last reset (plain runs not counted)
+launches: collections.Counter = collections.Counter()
+
+
+def instantiation(clouds: int, emit_d2: bool, emit_recon: bool, emit_pts: bool):
+    """The key of ``launches`` for stage1_kernel<clouds, d2, recon, pts>."""
+    return (clouds, bool(emit_d2), bool(emit_recon), bool(emit_pts))
 
 
 def thresholds(delta):
@@ -184,7 +192,6 @@ def stage1(neis, lines, deltas, kmax: int = KMAX, emit_d2: bool = True,
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     once (or raises)."""
-    global launches
     neis, deltas = tuple(neis), tuple(deltas)
     if len(neis) not in (1, 2) or len(deltas) != len(neis):
         raise ValueError("stage 1: one or two clouds, each with its deltas")
@@ -220,9 +227,7 @@ def stage1(neis, lines, deltas, kmax: int = KMAX, emit_d2: bool = True,
         *(None if x is None else x.data_ptr() for x in (slot_d2, slot_recon, slot_pts)),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "arrl_stage1")
-    launches += 1
-    for name, on in (("d2", emit_d2), ("recon", emit_recon), ("pts", emit_pts)):
-        mode_launches[name] += int(on)
+    launches[instantiation(C, emit_d2, emit_recon, emit_pts)] += 1
     return out
 
 
@@ -259,27 +264,3 @@ def intersect_stage1_pair(point_neis1, point_neis2, lines, delta1, delta2,
     out = stage1((point_neis1, point_neis2), lines, (delta1, delta2), kmax,
                  emit_d2, emit_recon, emit_pts)
     return _unpack(out, 0, kmax), _unpack(out, 1, kmax)
-
-
-def intersect_stage1_pair_pts_reference(neis1, neis2, lines, delta1, delta2,
-                                        kmax: int = KMAX,
-                                        line_chunk: int = LINE_CHUNK):
-    """Plain PyTorch version of ``intersect_stage1_pair_pts``."""
-    count, slot_idx, _, _, slot_pts = stage1_reference(
-        (neis1, neis2), lines, (delta1, delta2), kmax, False, False, True,
-        line_chunk)
-    return count, slot_idx, slot_pts
-
-
-def intersect_stage1_pair_pts(neis1, neis2, lines, delta1, delta2,
-                              kmax: int = KMAX):
-    """Stage 1 of both clouds in pts mode, the rigid path's layout.
-
-    neis1 (..., F1, 9), neis2 (..., F2, 9) neighbourhoods; lines (..., L, 6)
-    [dir | x0]; delta1/delta2 (..., F1)/(..., F2) adaptive thresholds
-    (``neighborhood_delta``). Returns count (..., 2, L) int32, slot_idx
-    (..., 2, L, kmax) int32 and slot_pts (..., 2, L, kmax, nnei, 3) float32;
-    empty slots hold 0."""
-    count, slot_idx, _, _, slot_pts = stage1(
-        (neis1, neis2), lines, (delta1, delta2), kmax, False, False, True)
-    return count, slot_idx, slot_pts

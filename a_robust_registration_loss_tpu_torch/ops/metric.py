@@ -132,32 +132,25 @@ def _recon(P, count, lines, kmax: int):
 
 
 def _outputs_to_inter(point_neis, outputs, lines=None):
-    """One cloud's stage-1 outputs (count, slot_idx, slot_d2 | None,
-    slot_recon | None, slot_pts | None) -> (Intersections, recon | None).
+    """One cloud's stage-1 outputs (count, slot_idx, slot_d2 | None, _,
+    slot_pts | None), from d2 mode or from pts mode with ``lines`` ->
+    (Intersections, recon | None).
 
-    The weights come from the kernel's raw d2 when emitted; in pts mode with
-    ``lines`` they are recomputed from the exact gathered coordinates, and
-    the reconstruction sum_i w_i p_i is formed here on the kmax slots."""
-    count, slot_idx, slot_d2, slot_recon, slot_pts = outputs
+    The weights come from the kernel's raw d2 when emitted, else they are
+    recomputed from the exact gathered coordinates; in pts mode the
+    reconstruction sum_i w_i p_i is formed here on the kmax slots."""
+    count, slot_idx, slot_d2, _, slot_pts = outputs
     F = point_neis.shape[-2]
     nnei = point_neis.shape[-1] // 3
     filled = slot_idx < F
     slot_idx = torch.where(filled, slot_idx, F).int()
-    if slot_d2 is None and slot_pts is not None and lines is not None:
-        d = _slot_dists(slot_pts, lines.detach())
-    elif slot_d2 is not None:
+    if slot_d2 is not None:
         d = [sqrt_rn(torch.clamp_min(slot_d2[..., i] + 2e-4, 0.0)) for i in range(nnei)]
     else:
-        d = None
-    if d is None:
-        w = torch.zeros(slot_idx.shape + (nnei,), dtype=point_neis.dtype,
-                        device=point_neis.device)
-    else:
-        w = torch.where(filled[..., None], torch.stack(_weights(d), dim=-1), 0.0)
+        d = _slot_dists(slot_pts, lines.detach())
+    w = torch.where(filled[..., None], torch.stack(_weights(d), dim=-1), 0.0)
     recon = None
-    if slot_recon is not None:
-        recon = torch.where(filled[..., None], slot_recon, 0.0)
-    elif slot_pts is not None:
+    if slot_pts is not None:
         recon = w[..., 0, None] * slot_pts[..., 0, :]
         for i in range(1, nnei):
             recon = recon + w[..., i, None] * slot_pts[..., i, :]
@@ -394,9 +387,9 @@ def rigid_slots(R, t, point_neis1, point_neis2, lines, kmax: int):
             neis1_t = (point_neis1.reshape(B, -1, 3) @ R
                        + t[:, None, :]).reshape(point_neis1.shape)
         neis2 = point_neis2.detach()
-        count, _idx, pts = IK.intersect_stage1_pair_pts(
-            neis1_t, neis2, lines, neighborhood_delta(neis1_t),
-            neighborhood_delta(neis2), kmax=kmax)
+        count, _idx, _, _, pts = IK.stage1(
+            (neis1_t, neis2), lines, (neighborhood_delta(neis1_t), neighborhood_delta(neis2)),
+            kmax, emit_d2=False, emit_recon=False, emit_pts=True)
         c1, c2 = count[..., 0, :], count[..., 1, :]
         r1 = _recon(pts[..., 0, :, :, :, :], c1, lines, kmax)
         r2 = _recon(pts[..., 1, :, :, :, :], c2, lines, kmax)

@@ -36,18 +36,22 @@ Phases:
    and 200 timed epochs, one launch of each of its kernels per epoch, a
    20-step profile that fails on a host copy or wait, and the kernel path
    against the plain path on the CPU at 2,000 lines;
-6. the batched path: per iteration the stage-1 API with its defaults (d2 +
-   recon, both clouds), ``find_intersections`` (d2), the forward and
-   gradient of the masked mean of ``intersection_loss_batch`` with respect
-   to the source neighbourhoods (pts) and of ``_metric_batch_rt`` with
-   respect to 32 twists (pts), each one launch for all 32 samples; 2 warm-up
-   and 20 timed iterations, a 5-iteration profile that fails on a host copy
-   or wait, and both losses and gradients against the CPU's plain path on 4
-   samples and 1,000 lines (the neighbourhood gradient added onto the
-   source points it copies: see ``to_points``).
+6. the batched path, each call one launch for all 32 samples: first
+   ``bench_loss.py``'s objective alone, the forward and gradient of the
+   masked mean of ``intersection_loss_batch`` with respect to the source
+   neighbourhoods (pts pair); then an iteration of every call of the slice:
+   the stage-1 API with its defaults (d2 + recon pair),
+   ``find_intersections`` (d2, one cloud), that objective, and
+   ``_metric_batch_rt``'s forward and gradient with respect to 32 twists
+   (pts pair). Each 2 warm-up and 20 timed iterations and a 5-iteration
+   profile that fails on a host copy or wait; both
+   losses and gradients against the CPU's plain path on 4 samples and 1,000
+   lines (the neighbourhood gradient added onto the source points it
+   copies: see ``to_points``).
 
 Every phase that drives a path sets the launch counters to 0 just before
-and reads them just after. Prints one JSON object of the kernels on the
+and reads them just after. Stage 1 is counted per template instantiation
+(``STAGE1``), so the entries' launches add up to the launches made. Prints one JSON object of the kernels on the
 line before the last, and as its last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and the exit code is not 0. Without a
 CUDA device it exits 1 before any work.
@@ -72,12 +76,17 @@ WARMUP, TIMED = 50, 200
 PROFILED = 20  # steps traced after the timed ones
 B2, N2, F2, L2 = 32, 1024, 1024, 5000  # BASELINE config 2
 WARMUP2, TIMED2, PROFILED2 = 2, 20, 5
-PROBE_N, PROBE_ITERS, PROBE_CHAINS = 8 * 128 * 1024, 512, 4  # bench.py:measured_vpu_peak's
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 PEAK_FP32_OPS = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores (FMA = 2)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes per second
 MODES = [(d2, recon, pts) for d2 in (False, True) for recon in (False, True)
          for pts in (False, True)]
+STAGE1 = {  # kernel entry -> the stage1_kernel instantiation (clouds, d2, recon, pts)
+    "stage1_pair_pts": (2, False, False, True),      # the classical step, the losses
+    "stage1_d2": (1, True, False, False),            # find_intersections
+    "stage1_pair_d2_recon": (2, True, True, False),  # intersect_stage1_pair's defaults
+}
+PTS = dict(emit_d2=False, emit_recon=False, emit_pts=True)
 DEV = "cuda"
 
 
@@ -175,16 +184,23 @@ def entry(name, source, replaces, err, ms, call_ms, plain_ms, ops, nbytes, rate,
 
 
 def counts(IK, RS, PB, reset=False):
-    """The launch counters by kernel entry of the JSON line; zeroes them
-    when ``reset``."""
+    """The launch counters by kernel entry of the JSON line, plus
+    ``stage1_other``, the stage-1 launches of any other instantiation;
+    zeroes them when ``reset``."""
     if reset:
-        IK.launches = RS.launches = PB.launches = 0
-        for k in IK.mode_launches:
-            IK.mode_launches[k] = 0
-    return {"stage1_pair_pts": IK.mode_launches["pts"], "stage1_d2": IK.mode_launches["d2"],
-            "stage1_recon": IK.mode_launches["recon"],
-            "resample_sample_and_hit": RS.launches, "probe_fp32_rate": PB.launches,
-            "stage1_all_modes": IK.launches}
+        IK.launches.clear()
+        RS.launches = PB.launches = 0
+    out = {name: IK.launches[IK.instantiation(*key)] for name, key in STAGE1.items()}
+    out["stage1_other"] = sum(IK.launches.values()) - sum(out.values())
+    out.update(resample_sample_and_hit=RS.launches, probe_fp32_rate=PB.launches)
+    return out
+
+
+def check_counts(launches, want, n, what):
+    """Each counter equals want[name] * n (0 where want has no name)."""
+    for name, count in launches.items():
+        w = want.get(name, 0) * n
+        check(count == w, f"{what} {name}: {count} launches in {n} calls (want {w})")
 
 
 def probe_phase(torch, PB):
@@ -194,23 +210,20 @@ def probe_phase(torch, PB):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(2)
     err = 0.0
-    for x in (torch.ones(PROBE_N, device=DEV),
+    for x in (torch.ones(PB.N, device=DEV),
               torch.rand(100_003, generator=gen, device=DEV) * 0.6 + 0.05):
-        for chains in PB.CHAINS:
-            if chains == 8 and bool((x > 0.66).any()):
-                continue  # x * 1.5 > 1 diverges; the bar is on bounded values
-            got, ref = PB.logistic_map(x, 2, chains), PB.logistic_map_reference(x, 2, chains)
-            check(torch.equal(got, ref), f"probe: chains={chains} differs from the plain version")
-            err = max(err, float((got - ref).abs().max()))
+        got, ref = PB.logistic_map(x, 2), PB.logistic_map_reference(x, 2)
+        check(torch.equal(got, ref), f"probe: n={x.shape[0]} differs from the plain version")
+        err = max(err, float((got - ref).abs().max()))
     print("probe: logistic map equals its plain version bit for bit "
-          f"(chains {PB.CHAINS}, 2 x {PB.UNROLL} steps)", flush=True)
-    n, iters, chains = PROBE_N, PROBE_ITERS, PROBE_CHAINS
+          f"({PB.CHAINS} chains, 2 x {PB.UNROLL} steps)", flush=True)
+    n, iters = PB.N, PB.ITERS
     PB.launches = 0
-    rate, ms = PB.measured_fp32_rate(n, iters, chains)
+    rate, ms = PB.measured_fp32_rate(DEV)
     launches = PB.launches
     x = torch.ones(n, device=DEV)
-    plain = cuda_ms(torch, lambda: PB.logistic_map_reference(x, iters, chains), 1, warmup=0)
-    ops = PB.operations(n, iters, chains)
+    plain = cuda_ms(torch, lambda: PB.logistic_map_reference(x, iters), 1, warmup=0)
+    ops = PB.operations(n, iters)
     print(f"probe: {rate / 1e12:.4f} T fp32 ops/s measured ({ms:.4f} ms per call of "
           f"{ops / 1e9:.1f} G ops), against the data sheet's {PEAK_FP32_OPS / 1e12:.0f} T "
           f"({rate / PEAK_FP32_OPS:.1%}); plain version {plain:.1f} ms", flush=True)
@@ -228,23 +241,24 @@ def stage1_phase(torch, M, IK, data, lines, rate):
     err = 0.0
     for name, (a, b, ls) in cases.items():
         d1, d2 = M.neighborhood_delta(a), M.neighborhood_delta(b)
-        got = IK.intersect_stage1_pair_pts(a, b, ls, d1, d2)
-        ref = IK.intersect_stage1_pair_pts_reference(a, b, ls, d1, d2)
+        got = IK.stage1((a, b), ls, (d1, d2), **PTS)
+        ref = IK.stage1_reference((a, b), ls, (d1, d2), **PTS)
         torch.cuda.synchronize()
-        for g, r, what in zip(got, ref, ("count", "slot_idx", "slot_pts")):
-            check(torch.equal(g, r), f"stage1 {name}: {what} differs from the plain version")
-        err = max(err, float((got[2] - ref[2]).abs().max()))
+        for g, r, what in zip(got, ref, ("count", "slot_idx", "d2", "recon", "slot_pts")):
+            check((g is None and r is None) or torch.equal(g, r),
+                  f"stage1 {name}: {what} differs from the plain version")
+        err = max(err, float((got[4] - ref[4]).abs().max()))
         print(f"stage1 {name}: F=({a.shape[0]}, {b.shape[0]}) L={ls.shape[0]} "
               f"hits={int(got[0].sum())} max count={int(got[0].max())}: "
               "count, slot_idx, slot_pts equal", flush=True)
     d1, d2 = M.neighborhood_delta(n1), M.neighborhood_delta(n2)
     L, F = lines.shape[0], n1.shape[0] + n2.shape[0]
     def call():
-        return IK.intersect_stage1_pair_pts(n1, n2, lines, d1, d2)
+        return IK.stage1((n1, n2), lines, (d1, d2), **PTS)
 
     ms = kernel_ms(torch, call, 20, "stage1_kernel")
     call_ms = cuda_ms(torch, call, 20)
-    plain = cuda_ms(torch, lambda: IK.intersect_stage1_pair_pts_reference(n1, n2, lines, d1, d2),
+    plain = cuda_ms(torch, lambda: IK.stage1_reference((n1, n2), lines, (d1, d2), **PTS),
                     2, warmup=1)
     k = IK.KMAX
     nbytes = L * 24 + F * 40 + 2 * L * (4 + 4 * k + 36 * k)
@@ -263,11 +277,11 @@ def _narrow_clouds(IK, out, clouds):
 def stage1_modes_phase(torch, M, IK, n1, n2, lines, rate):
     """Every mode combination, one and two clouds, at config 2's width and
     at a ragged shape: the batched launch equals the plain version and B
-    single (unbatched) launches bit for bit. Then each mode's time at
-    config 2. Returns {mode: (entry fields)} for d2, recon and pts."""
+    single (unbatched) launches bit for bit. Then the time at config 2 of
+    each instantiation in ``STAGE1``. Returns {entry name: fields}."""
     cases = {"config2": (n1, n2, lines),
              "ragged": (n1[:3, :333], n2[:3, :301], lines[:3, :257])}
-    err = {"d2": 0.0, "recon": 0.0, "pts": 0.0}
+    err = {"d2": 0.0, "recon": 0.0, "pts": 0.0}  # largest |kernel - plain| by output
     for case, (a, b, ls) in cases.items():
         deltas = (M.neighborhood_delta(a), M.neighborhood_delta(b))
         ref = IK.stage1_reference((a, b), ls, deltas, emit_d2=True, emit_recon=True,
@@ -301,15 +315,10 @@ def stage1_modes_phase(torch, M, IK, n1, n2, lines, rate):
     B, L, F = lines.shape[0], lines.shape[1], n1.shape[1]
     d1, d2 = M.neighborhood_delta(n1), M.neighborhood_delta(n2)
     k = IK.KMAX
-    runs = {  # mode: (neis, deltas, flags), as the batched path launches each
-        "d2": ((n1,), (d1,), (True, False, False)),
-        "recon": ((n1, n2), (d1, d2), (True, True, False)),
-        "pts": ((n1, n2), (d1, d2), (False, False, True)),
-    }
     out = {}
-    for mode, (neis, dl, flags) in runs.items():
+    for name, (C, *flags) in STAGE1.items():
+        neis, dl = (n1, n2)[:C], (d1, d2)[:C]
         kw = dict(emit_d2=flags[0], emit_recon=flags[1], emit_pts=flags[2])
-        C = len(neis)
         def call():
             return IK.stage1(neis, lines, dl, **kw)
 
@@ -321,9 +330,10 @@ def stage1_modes_phase(torch, M, IK, n1, n2, lines, rate):
         ops = B * L * F * C * IK.OPS_PER_PAIR + (IK.OPS_PER_RECON_SLOT * stored if flags[1] else 0)
         per_row = 4 + 4 * k + 12 * k * flags[0] + 12 * k * flags[1] + 36 * k * flags[2]
         nbytes = B * L * 24 + B * F * C * 40 + B * C * L * per_row
-        out[mode] = dict(err=err[mode], ms=ms, call_ms=call_ms, plain_ms=plain, ops=ops,
+        e = max(x for x, on in zip(err.values(), flags) if on)
+        out[name] = dict(err=e, ms=ms, call_ms=call_ms, plain_ms=plain, ops=ops,
                          nbytes=nbytes, shape=f"B={B} clouds={C} F={F} L={L}")
-        print(f"stage1 {mode} at config 2 ({out[mode]['shape']}): kernel {ms:.4f} ms, "
+        print(f"{name} at config 2 ({out[name]['shape']}): kernel {ms:.4f} ms, "
               f"call {call_ms:.4f} ms, plain {plain:.3f} ms", flush=True)
     return out
 
@@ -441,10 +451,8 @@ def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
     n = WARMUP + TIMED
     check(losses.shape == (n,) and np.isfinite(losses).all(), "a loss is not finite")
     check(valids.all(), "an epoch had no usable line")
-    want = {"stage1_pair_pts": n, "resample_sample_and_hit": n, "stage1_all_modes": n,
-            "stage1_d2": 0, "stage1_recon": 0, "probe_fp32_rate": 0}
-    for name, count in launches.items():
-        check(count == want[name], f"{name}: {count} launches in {n} epochs (want {want[name]})")
+    check_counts(launches, {"stage1_pair_pts": 1, "resample_sample_and_hit": 1}, n,
+                 "classical path")
     chamfer = [float(G.chamfer_distance(s[None], data["tar"][None]))
                for s in (src_first, carry[2])]
     ms = 1e3 * dt / TIMED
@@ -485,7 +493,9 @@ def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
 
 def batch_data(torch, G, LS):
     """Config 2 on the card: neighbourhoods (B, F, 9) of both clouds and
-    (B, L, 6) lines from ``batch_lines`` at DCP's radius scale 0.5."""
+    (B, L, 6) lines from ``batch_lines`` at DCP's radius scale 0.5 around
+    each target's mean (``bench_loss.py`` draws them at radius 2.2 around
+    the origin)."""
     src, tar = (torch.tensor(x, device=DEV) for x in synthetic_batch(B2, N2))
     t0 = time.perf_counter()
     n1 = G.sample_neighs(src, F2, 3).reshape(B2, F2, 9)
@@ -521,60 +531,73 @@ def to_points(g, neis, pts):
 
 
 def batch_path(torch, M, IK, RS, PB, LS, se3, src, n1, n2, lines):
-    """The batched metric API and the trainers' glue at config 2: 2 + 20
-    iterations with the launch counters, a 5-iteration profile, then the
-    card against the CPU's plain path on 4 samples and 1,000 lines. Returns
-    the launches per kernel of the 22 iterations."""
+    """The batched metric API and the trainers' glue at config 2:
+    ``bench_loss.py``'s objective alone, then the iteration of every call,
+    each 2 + 20 iterations with the launch counters and a 5-iteration
+    profile; then the card against the CPU's plain path on 4 samples and 1,000 lines.
+    Returns the launches per kernel of each run: (objective, iteration)."""
     cfg = LS.LossConfig(n_lines=L2)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(3)
     twists = (torch.rand((B2, 6), generator=gen, device=DEV) - 0.5) * 0.06
 
+    def objective(n1, n2, lines):
+        """bench_loss.py's: the forward and gradient of the masked mean of
+        intersection_loss_batch with respect to the source neighbourhoods."""
+        a = n1.detach().requires_grad_(True)
+        losses, valid = M.intersection_loss_batch(a, n2, lines)
+        (g,) = torch.autograd.grad(torch.where(valid, losses, 0.0).mean(), a)
+        return dict(losses=losses.detach(), valid=valid, g=g)
+
     def iteration(n1, n2, lines, twists):
         api = IK.intersect_stage1_pair(n1, n2, lines, M.neighborhood_delta(n1),
                                        M.neighborhood_delta(n2))
         inter = M.find_intersections(n1, lines)
-        a = n1.detach().requires_grad_(True)
-        losses, valid = M.intersection_loss_batch(a, n2, lines)
-        (g,) = torch.autograd.grad(torch.where(valid, losses, 0.0).mean(), a)
+        out = objective(n1, n2, lines)
         p = twists.detach().requires_grad_(True)
         R, t = se3.exp3(p)
         per = LS._metric_batch_rt(R, t, n1, n2, lines, cfg)
         (gp,) = torch.autograd.grad(per.sum() / p.shape[0], p)
-        return dict(api_count=api[0][0], count=inter.count, losses=losses.detach(),
-                    valid=valid, g=g, per=per.detach(), gp=gp)
+        return dict(out, api_count=api[0][0], count=inter.count, per=per.detach(), gp=gp)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counts(IK, RS, PB, reset=True)
-    for _ in range(WARMUP2):
-        out = iteration(n1, n2, lines, twists)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED2):
-        out = iteration(n1, n2, lines, twists)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = counts(IK, RS, PB)
-    n = WARMUP2 + TIMED2
-    want = {"stage1_d2": 2 * n, "stage1_recon": n, "stage1_pair_pts": 2 * n,
-            "stage1_all_modes": 4 * n, "resample_sample_and_hit": 0, "probe_fp32_rate": 0}
-    for name, count in launches.items():
-        check(count == want[name], f"batched path {name}: {count} launches in {n} "
-              f"iterations (want {want[name]})")
+    def run(fn, want, what):
+        """2 + 20 calls of fn between counter reset and read -> (last
+        output, ms per call over the 20, launches)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts(IK, RS, PB, reset=True)
+        for _ in range(WARMUP2):
+            out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED2):
+            out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TIMED2
+        launches = counts(IK, RS, PB)
+        n = WARMUP2 + TIMED2
+        check_counts(launches, want, n, what)
+        for key in ("losses", "per", "g", "gp"):
+            check(key not in out or bool(torch.isfinite(out[key]).all()),
+                  f"{what}: {key} not finite")
+        check(bool(out["valid"].all()) and ("per" not in out or bool((out["per"] > 0).all())),
+              f"{what}: a sample has no usable line")
+        print(f"{what}: {n} iterations at B={B2} F={F2} L={L2}: {ms:.4f} ms/iteration over "
+              f"the last {TIMED2}; mean loss {float(out['losses'].mean()):.6f}"
+              + (f", mean rigid loss {float(out['per'].mean()):.6f}" if "per" in out else "")
+              + f"; launches per iteration { {k: v / n for k, v in launches.items() if v} }; "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        return out, ms, launches
+
+    _, ms_obj, obj = run(lambda: objective(n1, n2, lines), {"stage1_pair_pts": 1},
+                         "bench_loss objective (intersection_loss_batch forward + gradient)")
+    profile_phase(torch, lambda: objective(n1, n2, lines), PROFILED2, "objective", ms_obj)
+    out, ms, mix = run(lambda: iteration(n1, n2, lines, twists),
+                       {"stage1_d2": 1, "stage1_pair_d2_recon": 1, "stage1_pair_pts": 2},
+                       "batched path (every call of the slice)")
     check(torch.equal(out["api_count"], out["count"]),
           "the stage-1 API and find_intersections count differently")
-    for key in ("losses", "per", "g", "gp"):
-        check(bool(torch.isfinite(out[key]).all()), f"batched path: {key} not finite")
-    check(bool(out["valid"].all()) and bool((out["per"] > 0).all()),
-          "batched path: a sample has no usable line")
-    ms = 1e3 * dt / TIMED2
-    per_iter = {k: v / n for k, v in launches.items()}
-    print(f"batched path: {n} iterations at B={B2} F={F2} L={L2}: {ms:.4f} ms/iteration "
-          f"over the last {TIMED2}; mean loss {float(out['losses'].mean()):.6f}, mean "
-          f"rigid loss {float(out['per'].mean()):.6f}; launches per iteration {per_iter}; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
-          flush=True)
     profile_phase(torch, lambda: iteration(n1, n2, lines, twists), PROFILED2, "iteration", ms)
 
     # the card against the CPU's plain path on 4 samples and 1,000 lines
@@ -595,7 +618,7 @@ def batch_path(torch, M, IK, RS, PB, LS, se3, src, n1, n2, lines):
         check(lerr <= 1e-4, f"batched path {key}: rel err {lerr}")
         check(gerr <= 5e-4, f"batched path {gkey}: gradient rel L2 {gerr}")
     check(np.array_equal(k_["count"], p_["count"]), "batched path: counts differ from the CPU's")
-    return launches
+    return obj, mix
 
 
 def main():
@@ -647,20 +670,12 @@ def main():
     src2, n1, n2, lines2 = batch_data(torch, G, LS)
     modes = stage1_modes_phase(torch, M, IK, n1, n2, lines2, rate)
     src = "a_robust_registration_loss_tpu_torch/csrc/intersect.cu"
-    kernels = [
-        pts,
-        entry("stage1_d2", src, "a_robust_registration_loss_tpu/ops/pallas/intersect.py:56",
-              modes["d2"]["err"], modes["d2"]["ms"], modes["d2"]["call_ms"],
-              modes["d2"]["plain_ms"], modes["d2"]["ops"], modes["d2"]["nbytes"], rate,
-              shape=modes["d2"]["shape"]),
-        entry("stage1_recon", src, "a_robust_registration_loss_tpu/ops/pallas/intersect.py:56",
-              modes["recon"]["err"], modes["recon"]["ms"], modes["recon"]["call_ms"],
-              modes["recon"]["plain_ms"], modes["recon"]["ops"], modes["recon"]["nbytes"],
-              rate, shape=modes["recon"]["shape"]),
-        resample,
-        probe,
-    ]
-    p2 = modes["pts"]
+    kernels = [pts] + [
+        entry(name, src, "a_robust_registration_loss_tpu/ops/pallas/intersect.py:56",
+              m["err"], m["ms"], m["call_ms"], m["plain_ms"], m["ops"], m["nbytes"], rate,
+              shape=m["shape"])
+        for name, m in modes.items() if name != "stage1_pair_pts"] + [resample, probe]
+    p2 = modes["stage1_pair_pts"]
     (mb, _), (db, _) = bounds(p2["ops"], p2["nbytes"], rate)
     pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"], config2_call_ms=p2["call_ms"],
                config2_plain_ms=p2["plain_ms"], config2_bound_ms=db,
@@ -673,10 +688,10 @@ def main():
               f"measured rate ({k['bound_ms_measured_rate'] / k['ms']:.1%} of it reached), "
               f"{k['bound_ms']:.5f} ms by {k['bound_by']} at the data sheet's", flush=True)
 
-    paths = {"probe": {"probe_fp32_rate": probe_launches},
-             "classical": main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg),
-             "batched_metric": batch_path(torch, M, IK, RS, PB, LS, se3, src2, n1, n2,
-                                         lines2)}
+    classical_launches = main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg)
+    objective, mix = batch_path(torch, M, IK, RS, PB, LS, se3, src2, n1, n2, lines2)
+    paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
+             "bench_loss_objective": objective, "batched_metric": mix}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -70,13 +70,15 @@ def _problem(f1, f2, n_lines, seed=0):
 def test_stage1_kernel_matches_plain(cuda_device, f1, f2, n_lines):
     n1, n2, lines = (x.to(cuda_device) for x in _problem(f1, f2, n_lines))
     args = (n1, n2, lines, M.neighborhood_delta(n1), M.neighborhood_delta(n2))
-    before = IK.launches
-    got = IK.intersect_stage1_pair_pts(*args)
-    assert IK.launches == before + 1
-    ref = IK.intersect_stage1_pair_pts_reference(*args)
+    kw = dict(emit_d2=False, emit_recon=False, emit_pts=True)
+    key = IK.instantiation(2, **kw)
+    before = IK.launches[key]
+    got = IK.stage1(args[:2], args[2], args[3:], **kw)
+    assert IK.launches[key] == before + 1
+    ref = IK.stage1_reference(args[:2], args[2], args[3:], **kw)
     assert int(ref[0].sum()) > 0
     for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+        assert (g is None and r is None) or torch.equal(g, r)
 
 
 @pytest.mark.cuda
@@ -107,7 +109,7 @@ def test_wrappers_raise_on_cuda_input_they_cannot_take(cuda_device):
     lines = torch.zeros((3, 6), device=cuda_device)
     d = torch.zeros(4, device=cuda_device)
     with pytest.raises(ValueError):
-        IK.intersect_stage1_pair_pts(x, x, lines, d, d)
+        IK.stage1((x, x), lines, (d, d), emit_d2=False, emit_recon=False, emit_pts=True)
     fv = torch.zeros((24, 16), device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError):
         RS.sample_and_hit(torch.zeros((4, 8), device=cuda_device), 1.0,
@@ -126,12 +128,14 @@ def test_classical_step_on_card(cuda_device):
     params = TC.init_twist(g)
     carry = (params, TC.init_adam(params), data["src"])
     step = TC.make_step(cfg, data)
-    rs0, ik0 = RS.launches, IK.launches
+    pts = IK.instantiation(2, False, False, True)
+    rs0, ik0, all0 = RS.launches, IK.launches[pts], sum(IK.launches.values())
     for _ in range(3):
         carry, m = step(carry, torch.rand((4, LN.ROUNDS * cfg.n_lines),
                                           generator=g, device=cuda_device))
         assert bool(m["valid"]) and bool(torch.isfinite(m["loss"]))
-    assert (RS.launches - rs0, IK.launches - ik0) == (3, 3)
+    assert (RS.launches - rs0, IK.launches[pts] - ik0) == (3, 3)
+    assert sum(IK.launches.values()) - all0 == 3
 
     u4 = torch.rand((4, LN.ROUNDS * cfg.n_lines), generator=g, device=cuda_device)
     lines = LN.resample_lines(u4, data["radius"], data["center"], cfg.n_lines,
@@ -191,17 +195,18 @@ def _batch(B, f1, f2, n_lines):
 @pytest.mark.parametrize("flags", MODES, ids=lambda f: "d2%d-recon%d-pts%d" % f)
 def test_stage1_modes_match_plain(cuda_device, flags, batched):
     """Every mode, one and two clouds: the kernel's outputs equal the plain
-    version's bit for bit, one launch per call, counted per mode."""
+    version's bit for bit, one launch per call, counted under its
+    instantiation alone."""
     n1, n2, lines = _batch(3, 200, 170, 300) if batched else _problem(333, 301, 257)
     n1, n2, lines = (x.to(cuda_device) for x in (n1, n2, lines))
     d1, d2 = M.neighborhood_delta(n1), M.neighborhood_delta(n2)
     for neis, deltas in (((n1,), (d1,)), ((n1, n2), (d1, d2))):
-        before, modes = IK.launches, dict(IK.mode_launches)
+        before = dict(IK.launches)
         got = IK.stage1(neis, lines, deltas, emit_d2=flags[0], emit_recon=flags[1],
                         emit_pts=flags[2])
-        assert IK.launches == before + 1
-        for name, on in zip(("d2", "recon", "pts"), flags):
-            assert IK.mode_launches[name] == modes[name] + int(on)
+        key = IK.instantiation(len(neis), *flags)
+        assert IK.launches[key] == before.get(key, 0) + 1
+        assert all(IK.launches[k] == n for k, n in before.items() if k != key)
         ref = IK.stage1_reference(neis, lines, deltas, emit_d2=flags[0],
                                   emit_recon=flags[1], emit_pts=flags[2])
         assert int(ref[0].sum()) > 0
@@ -222,15 +227,19 @@ def test_stage1_batch_equals_single_launches(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chains", PB.CHAINS)
-def test_probe_matches_plain(cuda_device, chains):
-    x = torch.rand(10_000, generator=torch.Generator().manual_seed(chains)) * 0.6 + 0.05
+@pytest.mark.parametrize("iters", [0, 2, 5])
+def test_probe_matches_plain(cuda_device, iters):
+    x = torch.rand(10_000, generator=torch.Generator().manual_seed(iters)) * 0.6 + 0.05
     x = x.to(cuda_device)
     before = PB.launches
-    got = PB.logistic_map(x, 2, chains)
+    got = PB.logistic_map(x, iters)
     assert PB.launches == before + 1
-    assert torch.equal(got, PB.logistic_map_reference(x, 2, chains))
-    rate, ms = PB.measured_fp32_rate(n=1 << 16, iters=8, chains=chains, reps=2)
+    assert torch.equal(got, PB.logistic_map_reference(x, iters))
+
+
+@pytest.mark.cuda
+def test_probe_measures_a_rate(cuda_device):
+    rate, ms = PB.measured_fp32_rate(cuda_device)
     assert rate > 0 and ms > 0
 
 
@@ -246,15 +255,17 @@ def test_generic_metric_and_glue_on_card(cuda_device):
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
         a = n1.to(dev).requires_grad_(True)
-        before = IK.launches
+        before = dict(IK.launches)
         inter = M.find_intersections(a, lines.to(dev))
         losses, valid = M.intersection_loss_batch(a, n2.to(dev), lines.to(dev))
         (g,) = torch.autograd.grad(torch.where(valid, losses, 0.0).mean(), a)
         Rd, td = R.to(dev).requires_grad_(True), t.to(dev).requires_grad_(True)
         per = LS._metric_batch_rt(Rd, td, n1.to(dev), n2.to(dev), lines.to(dev), LS.LossConfig())
         gR, gt = torch.autograd.grad(per.sum(), (Rd, td))
-        if dev.type == "cuda":
-            assert IK.launches == before + 3
+        if dev.type == "cuda":  # d2 single cloud once, pts pair twice
+            d2, pts = IK.instantiation(1, True, False, False), IK.instantiation(2, False, False, True)
+            assert {k: n - before.get(k, 0) for k, n in IK.launches.items()
+                    if n != before.get(k, 0)} == {d2: 1, pts: 2}
         assert bool(valid.all()) and bool((per > 0).all())
         out[dev.type] = (inter.count.cpu(), losses.detach().cpu().numpy(), g.cpu().numpy(),
                          per.detach().cpu().numpy(),
@@ -276,4 +287,4 @@ def test_batched_wrappers_raise_on_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         IK.intersect_stage1(n[:2], lines, torch.zeros((2, 5), device=cuda_device))
     with pytest.raises(ValueError):
-        PB.logistic_map(torch.ones(8, device=cuda_device), 1, chains=3)
+        PB.logistic_map(torch.ones(8, device=cuda_device), -1)

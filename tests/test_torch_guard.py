@@ -80,9 +80,9 @@ def test_probe_and_metric_refuse_a_missing_card(monkeypatch):
     is neither the CPU nor a card raises instead of falling back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        PB.measured_fp32_rate(n=8, iters=1)
+        PB.measured_fp32_rate()
     with pytest.raises(ValueError):
-        PB.measured_fp32_rate(n=8, iters=1, device="cpu")
+        PB.measured_fp32_rate(device="cpu")
     x = torch.zeros((4, 9), device="meta")
     with pytest.raises(ValueError):
         M.find_intersections(x, torch.zeros((3, 6), device="meta"))

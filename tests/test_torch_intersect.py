@@ -46,6 +46,14 @@ def _jax_pair(neis1, neis2, lines):
     return (np.stack(c), np.stack(i), np.stack(p)), (np.asarray(d1), np.asarray(d2))
 
 
+def _pts_pair(neis1, neis2, lines, d1, d2, plain=False, **kw):
+    """Stage 1 of both clouds in pts mode -> (count, slot_idx, slot_pts)."""
+    fn = IK.stage1_reference if plain else IK.stage1
+    count, slot_idx, _, _, slot_pts = fn((neis1, neis2), lines, (d1, d2), emit_d2=False,
+                                         emit_recon=False, emit_pts=True, **kw)
+    return count, slot_idx, slot_pts
+
+
 def _assert_equal(got, ref):
     for g, r, name in zip(got, ref, ("count", "slot_idx", "slot_pts")):
         np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
@@ -55,7 +63,7 @@ def test_plain_matches_pallas_ragged():
     """F = (333, 301), L = 257: ragged on both axes, clouds of unequal F."""
     neis1, neis2, lines = random_problem()
     ref, (d1, d2) = _jax_pair(neis1, neis2, lines)
-    got = IK.intersect_stage1_pair_pts(t(neis1), t(neis2), t(lines), t(d1), t(d2))
+    got = _pts_pair(t(neis1), t(neis2), t(lines), t(d1), t(d2))
     assert ref[0].sum() > 50  # a real test: the lines do hit
     _assert_equal(got, ref)
 
@@ -82,7 +90,7 @@ def test_counts_exceed_kmax_across_face_tiles():
                       129, axis=0)
     lines[1:, 4] = 50.0  # every other line misses everything
     ref, (d1, d2) = _jax_pair(neis1, neis2, lines)
-    got = IK.intersect_stage1_pair_pts(t(neis1), t(neis2), t(lines), t(d1), t(d2))
+    got = _pts_pair(t(neis1), t(neis2), t(lines), t(d1), t(d2))
     _assert_equal(got, ref)
     count, slot_idx, slot_pts = (x.numpy() for x in got)
     assert count[0, 0] == len(hit1) and count[1, 0] == 1
@@ -96,8 +104,8 @@ def test_line_chunking_is_invisible():
     neis1, neis2, lines = random_problem(seed=9, f1=150, f2=170, n_lines=200)
     args = (t(neis1), t(neis2), t(lines), M.neighborhood_delta(t(neis1)),
             M.neighborhood_delta(t(neis2)))
-    a = IK.intersect_stage1_pair_pts_reference(*args, line_chunk=33)
-    b = IK.intersect_stage1_pair_pts_reference(*args, line_chunk=1024)
+    a = _pts_pair(*args, plain=True, line_chunk=33)
+    b = _pts_pair(*args, plain=True, line_chunk=1024)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -112,6 +120,5 @@ def test_thresholds_match_pack_faces():
 def test_wrapper_refuses_other_devices():
     x = torch.zeros((4, 9), device="meta")
     with pytest.raises(ValueError):
-        IK.intersect_stage1_pair_pts(x, x, torch.zeros((3, 6), device="meta"),
-                                     torch.zeros(4, device="meta"),
-                                     torch.zeros(4, device="meta"))
+        _pts_pair(x, x, torch.zeros((3, 6), device="meta"), torch.zeros(4, device="meta"),
+                  torch.zeros(4, device="meta"))

@@ -6,10 +6,10 @@ the JAX package on the CPU, where stage 1 runs its plain version.
 Bars:
 - find_intersections: counts and slots exactly equal to both JAX paths
   (Pallas in interpret mode, and XLA) at these seeds; slot_w within 1e-6 of
-  the XLA path (equal at these seeds) and within 5e-3 of the Pallas path,
+  the XLA path (equal at these seeds) and within 1e-3 of the Pallas path,
   whose interpret-mode d2 carries XLA:CPU's fused multiply-adds: a few ulps
-  of |p - x0|^2 ~ 16 in d2 move a weight sqrt(d2 + 2e-4) / sum by up to
-  ~2.5e-3 (6.8e-4 seen).
+  of |p - x0|^2 ~ 16 in d2 move a weight sqrt(d2 + 2e-4) / sum of a slot
+  whose d2 is near 0 (6.8e-4 seen at these seeds).
 - losses: value within 1e-4 relative, gradient within 5e-4 relative L2, on
   both JAX backends, after asserting that both sides' stage-1 counts agree
   (the metric is discontinuous in the labels).
@@ -68,7 +68,7 @@ def test_find_intersections(seed, backend):
     np.testing.assert_array_equal(got.count.numpy(), np.asarray(ref.count))
     np.testing.assert_array_equal(got.slot_idx.numpy(), np.asarray(ref.slot_idx))
     np.testing.assert_allclose(got.slot_w.numpy(), np.asarray(ref.slot_w), rtol=0,
-                               atol=5e-3 if backend == "pallas" else 1e-6)
+                               atol=1e-3 if backend == "pallas" else 1e-6)
 
 
 def test_find_intersections_batch_is_per_sample(batch):

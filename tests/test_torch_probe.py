@@ -31,7 +31,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def jax_probe():
-    """measured_vpu_peak at 2 chains, 1 x 16 steps, one (8, 128) block;
+    """measured_vpu_peak at its 4 chains, 1 x 16 steps, one (8, 128) block;
     returns its kernel body and pallas_call arguments."""
     real = pl.pallas_call
     seen = []
@@ -42,8 +42,8 @@ def jax_probe():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pl, "pallas_call", interpreted)
-        rate, ms = bench.measured_vpu_peak(iters=1, unroll=16, chains=2, rows=8,
-                                           cols=128, grid=1)
+        rate, ms = bench.measured_vpu_peak(iters=1, unroll=16, rows=8, cols=128,
+                                           grid=1)
     assert rate > 0 and ms > 0
     return seen[0], real
 
@@ -53,34 +53,33 @@ def test_plain_matches_jax_kernel(jax_probe):
     x = np.random.default_rng(0).uniform(0.05, 0.95, (8, 128)).astype(np.float32)
     x[0, 0] = 0.6
     want = np.asarray(real(kern, interpret=True, **kw)(jnp.asarray(x)))
-    got = PB.logistic_map(torch.tensor(x.reshape(-1)), iters=1, chains=2)
+    got = PB.logistic_map(torch.tensor(x.reshape(-1)), iters=1)
     np.testing.assert_allclose(got.numpy().reshape(8, 128), want, rtol=3e-7, atol=0)
 
 
-@pytest.mark.parametrize("chains", PB.CHAINS)
-def test_plain_matches_float32_recipe(chains):
-    """The plain version is the map in float32, one rounding per op."""
-    # x * (0.1 + 0.2 c) stays in (0, 1) for c < 8, so the map stays bounded
-    x = np.random.default_rng(chains).uniform(0.05, 0.65, 1000).astype(np.float32)
+@pytest.mark.parametrize("iters", [0, 1, 2, 5])
+def test_plain_matches_float32_recipe(iters):
+    """The plain version is the map in float32, one rounding per op, at
+    0 (the chains' sum alone) to 5 x 16 steps."""
+    # x * (0.1 + 0.2 c) stays in (0, 1), so the map stays bounded
+    x = np.random.default_rng(iters).uniform(0.05, 0.65, 1000).astype(np.float32)
     r = x[0] * np.float32(3.9)
-    xs = [x * np.float32(0.1 + 0.2 * c) for c in range(chains)]
-    for _ in range(2 * PB.UNROLL):
+    xs = [x * np.float32(0.1 + 0.2 * c) for c in range(PB.CHAINS)]
+    for _ in range(iters * PB.UNROLL):
         xs = [(r * v) * (np.float32(1) - v) for v in xs]
     want = xs[0]
     for v in xs[1:]:
         want = want + v
-    np.testing.assert_array_equal(PB.logistic_map(torch.tensor(x), 2, chains).numpy(), want)
+    np.testing.assert_array_equal(PB.logistic_map(torch.tensor(x), iters).numpy(), want)
 
 
 def test_operation_count_is_bench_py():
     d = {k: v.default for k, v in inspect.signature(bench.measured_vpu_peak).parameters.items()}
     n = d["rows"] * d["cols"] * d["grid"]
-    assert d["unroll"] == PB.UNROLL
-    assert PB.operations(n, d["iters"], d["chains"]) == \
+    assert (d["unroll"], d["chains"]) == (PB.UNROLL, PB.CHAINS)
+    assert PB.operations(n, d["iters"]) == \
         3 * d["iters"] * d["unroll"] * d["chains"] * d["rows"] * d["cols"] * d["grid"]
-    fn = inspect.signature(PB.measured_fp32_rate).parameters
-    assert fn["n"].default == n and fn["iters"].default == d["iters"]
-    assert fn["chains"].default == d["chains"]
+    assert (PB.N, PB.ITERS) == (n, d["iters"])
 
 
 def test_wrapper_refuses_other_devices():

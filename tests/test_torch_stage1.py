@@ -132,8 +132,8 @@ def test_batch_equals_single_calls(clouds):
 
 
 def test_raw_layout_and_pts_entry(ragged):
-    """``stage1`` keeps 0 on empty slots and a cloud axis;
-    ``intersect_stage1_pair_pts`` is its pts-mode pair."""
+    """``stage1`` keeps 0 on empty slots and a cloud axis; in pts mode alone
+    it gives the same count, slots and coordinates."""
     neis1, neis2, lines = ragged
     args = (t(neis1), t(neis2), t(lines), M.neighborhood_delta(t(neis1)),
             M.neighborhood_delta(t(neis2)))
@@ -145,7 +145,10 @@ def test_raw_layout_and_pts_entry(ragged):
         filled = pair[cloud][1] != IK.EMPTY
         assert torch.equal(torch.where(filled, pair[cloud][1], 0), raw[1][cloud])
         assert torch.equal(pair[cloud][2], raw[2][cloud])
-    for a, b in zip(IK.intersect_stage1_pair_pts(*args), (raw[0], raw[1], raw[4])):
+    pts = IK.stage1(args[:2], args[2], args[3:], emit_d2=False, emit_recon=False,
+                    emit_pts=True)
+    assert pts[2] is None and pts[3] is None
+    for a, b in zip((pts[0], pts[1], pts[4]), (raw[0], raw[1], raw[4])):
         assert torch.equal(a, b)
 
 
