@@ -15,7 +15,9 @@
 // Design: one thread per candidate; the 24 prepped faces (p0 p1 p2 nh S pad,
 // 16 floats each) and [r, cx, cy, cz] are read once per block into shared
 // memory from device tensors, so the host never syncs to pass them.
-// Outputs: cand (C, 6) [direction | origin] and ok (C,) as bytes 0/1.
+// Grid axis y is the sample of a batch: every sample has its own uniforms,
+// sphere and faces, and one launch serves the whole batch.
+// Outputs: cand (B, C, 6) [direction | origin] and ok (B, C) as bytes 0/1.
 //
 // Bound on the H100: operations, and both bounds are small. Per candidate
 // 16 bytes in and 25 out, and 1,990 fp32 operations (24 faces x 81, plus 46
@@ -72,6 +74,12 @@ resample_kernel(const float* __restrict__ u4, int C,
                 unsigned char* __restrict__ ok) {
   __shared__ float fv[kFaces * kFaceWords];
   __shared__ float prm[4];
+  const size_t b = blockIdx.y;  // the sample
+  u4 += b * 4 * C;
+  params += b * 4;
+  fv_prep += b * kFaces * kFaceWords;
+  cand += b * C * 6;
+  ok += b * C;
   for (int k = threadIdx.x; k < kFaces * kFaceWords; k += kThreads)
     fv[k] = fv_prep[k];
   if (threadIdx.x < 4) prm[threadIdx.x] = params[threadIdx.x];
@@ -118,14 +126,14 @@ resample_kernel(const float* __restrict__ u4, int C,
 
 }  // namespace
 
-// u4 (4, C); params [r, cx, cy, cz]; fv_prep (24, 16); outputs cand (C, 6)
-// and ok (C,) bytes. All contiguous on the device. Returns
-// cudaGetLastError() after the launch.
-extern "C" int arrl_resample(const float* u4, int C, const float* params,
-                             const float* fv_prep, float* cand,
-                             unsigned char* ok, void* stream) {
-  const int blocks = (C + kThreads - 1) / kThreads;
-  resample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+// u4 (B, 4, C); params (B, 4) rows [r, cx, cy, cz]; fv_prep (B, 24, 16);
+// outputs cand (B, C, 6) and ok (B, C) bytes. All contiguous on the device;
+// B <= 65535. Returns cudaGetLastError() after the launch.
+extern "C" int arrl_resample(const float* u4, int B, int C,
+                             const float* params, const float* fv_prep,
+                             float* cand, unsigned char* ok, void* stream) {
+  const dim3 grid((C + kThreads - 1) / kThreads, B);
+  resample_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       u4, C, params, fv_prep, cand, ok);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,7 +37,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "arrl_stage1": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                     _P, _P, _P, _P, _P, _P],
-    "arrl_resample": [_P, _I, _P, _P, _P, _P, _P],
+    "arrl_resample": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "arrl_gather_fwd": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "arrl_gather_bwd": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
     "arrl_logistic": [_P, _P, _I, _I, _P],
 }
 

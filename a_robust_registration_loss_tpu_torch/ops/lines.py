@@ -48,24 +48,28 @@ def triangle_hits(face_vertices, lines):
 
 
 def _fill_first_n_gather(cand, ok, n: int):
-    """Keep the first n accepted candidates, in order, zero-filled tail.
+    """Keep the first n accepted candidates of (..., C, 6), in order,
+    zero-filled tail.
 
     cumsum ranks and one scatter into an (n + 1)-row buffer whose last row
     is a dump for the rejected and surplus candidates: no host sync."""
-    pos = torch.cumsum(ok, dim=0) - 1
+    pos = torch.cumsum(ok, dim=-1) - 1
     dest = torch.where(ok & (pos < n), pos, n)
-    out = torch.zeros((n + 1, cand.shape[1]), dtype=cand.dtype,
+    out = torch.zeros((*cand.shape[:-2], n + 1, cand.shape[-1]), dtype=cand.dtype,
                       device=cand.device)
-    out.index_copy_(0, dest, cand)
-    return out[:n]
+    out.scatter_(-2, dest[..., None].expand_as(cand), cand)
+    return out[..., :n, :]
 
 
 def resample_lines(u4, r, center, n: int, vertices1, vertices2):
     """Rejection resampling of n lines hitting both clouds' AABB meshes.
 
     u4 (4, ROUNDS * n) uniforms; r, center the sampling sphere; vertices1/2
-    (N, 3). Returns (n, 6)."""
-    fvs1 = G.bbox_face_vertices(vertices1[None])[0]
-    fvs2 = G.bbox_face_vertices(vertices2[None])[0]
-    cand, ok = RS.sample_and_hit(u4, r, center, RS.prep_faces(fvs1, fvs2))
+    (N, 3). Returns (n, 6). With a leading batch axis on every argument
+    (u4 (B, 4, ROUNDS * n), r (B,), center (B, 3), vertices (B, N, 3)):
+    (B, n, 6), from one launch of the candidate kernel."""
+    batched = u4.dim() == 3
+    v1, v2 = (v if batched else v[None] for v in (vertices1, vertices2))
+    fv = RS.prep_faces(G.bbox_face_vertices(v1), G.bbox_face_vertices(v2))
+    cand, ok = RS.sample_and_hit(u4, r, center, fv if batched else fv[0])
     return _fill_first_n_gather(cand, ok, n)

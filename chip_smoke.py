@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-Drives the port's two paths on the card:
+Drives the port's paths on the card:
 
 - the classical registration step at the bench configuration: two
   4,096-point clouds (a synthetic Fibonacci ellipsoid pair made from seed 0),
@@ -13,7 +13,12 @@ Drives the port's two paths on the card:
   (``benchmarks/bench_loss.py``'s defaults): 32 synthetic pairs of a
   1,024-point Fibonacci sphere with 0.01 noise from seed 0, 1,024 FPS + 3-NN
   neighbourhoods per cloud, 5,000 lines per sample from ``batch_lines`` at
-  radius scale 0.5.
+  radius scale 0.5;
+- DCP's evaluation path at ``DCPConfig``'s defaults (DGCNN with k = 20, one
+  transformer block of 4 heads and ff 1,024, the SVD head, 512 embedding
+  dimensions, weights from seed 0): 8 batches of 4 synthetic pairs of a
+  1,024-point noisy Fibonacci sphere from seed 0, 1,024 FPS + 3-NN
+  neighbourhoods per cloud, 15,000 lines per sample.
 
 Phases:
 
@@ -49,10 +54,38 @@ Phases:
    lines (the neighbourhood gradient added onto the source points it
    copies: see ``to_points``).
 
+7. the row gather: forward and backward kernels against their plain
+   versions at (B, N, C, Q) = (4, 1,024, 6, 65,536), (4, 1,024, 128,
+   65,536) and a ragged (3, 17, 5, 33) with indices out of range: forward
+   bit for bit, backward equal to the plain version on the CPU bit for bit
+   (the kernel sums in ascending q, as a sequential ``index_add_`` does),
+   within 1e-6 x sum |g| of the plain version on the card (whose atomics
+   sum in an order of their own), and two launches equal bit for bit; with
+   the times of ``torch.take_along_dim`` and ``index_add_`` beside them;
+8. the resampler's batch axis: one launch at B = 4 and 150,000 candidates
+   per sample equal to 4 single launches bit for bit;
+9. the kernels on the DCP path's own data, before the paths' long
+   profiles: the gather kernels on the kNN indices of the model's own graph
+   (forward equal to the features the model gathered, backward of the
+   model's own upstream gradient equal to the plain version's, counted as
+   a path of its own); stage 1 as ``dcp_cal_loss`` launches it (both
+   clouds, pts mode, B = 4, F = 1,024 per cloud, 15,000 lines) against its
+   plain version on the card bit for bit, with its time; and the card
+   against the CPU's plain path: R_ab and t_ab within 1e-4, and at 15,000
+   lines, the same on both, equal stage-1 counts, then the loss within
+   1e-4 relative;
+10. the DCP path: ``evaluate`` over the 8 batches (every metric finite,
+   ``Eval.json`` and the OBJ dumps written to a temporary directory, one
+   resampler and one stage-1 launch per batch), 10 iterations of the
+   forward and gradient of ``dcp_train_loss`` through the network to every
+   parameter (finite, the SVD head's singular values apart), and
+   5-iteration profiles of both that count host copies and waits without
+   failing on them.
+
 Every phase that drives a path sets the launch counters to 0 just before
 and reads them just after. Stage 1 is counted per template instantiation
-(``STAGE1``), so the entries' launches add up to the launches made. Prints one JSON object of the kernels on the
-line before the last, and as its last line ``{"ok": true, "device":
+(``STAGE1``), so the entries' launches add up to the launches made. Prints
+one JSON object of the kernels on the line before the last, and as its last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and the exit code is not 0. Without a
 CUDA device it exits 1 before any work.
 """
@@ -74,8 +107,13 @@ N_FACES = 2048
 N_LINES = 20000
 WARMUP, TIMED = 50, 200
 PROFILED = 20  # steps traced after the timed ones
+TRACE_TRIES = 5  # windows kernel_ms traces before it fails on missing records
 B2, N2, F2, L2 = 32, 1024, 1024, 5000  # BASELINE config 2
 WARMUP2, TIMED2, PROFILED2 = 2, 20, 5
+B3, N3, F3, L3, BATCHES3 = 4, 1024, 1024, 15000, 8  # the DCP path
+GRAD_ITERS3, PROFILED3 = 10, 5
+GATHER_SHAPES = {"rpm_grouping": (4, 1024, 6, 65536), "wide": (4, 1024, 128, 65536),
+                 "ragged": (3, 17, 5, 33)}  # (B, N, C, Q)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 PEAK_FP32_OPS = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores (FMA = 2)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes per second
@@ -139,23 +177,37 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(torch, fn, reps, kernel):
-    """Mean device time of the kernel whose name holds ``kernel`` per call
-    of fn over reps calls, read from torch.profiler. Back to back, a
-    wrapper's host work can outlast its kernel, and CUDA events around the
-    calls would then time the host."""
+def kernel_ms(torch, fn, reps, kernel=None):
+    """Mean device time per call of fn over reps calls, read from
+    torch.profiler: of the kernel whose name holds ``kernel``, or, with no
+    name, of everything fn puts on the device (a library call, whose
+    kernels' names are not ours to know). Back to back, a wrapper's host
+    work can outlast its kernel, and CUDA events around the calls would
+    then time the host. A named kernel must show all of its reps launches:
+    the tracer now and then loses the records of a window's tail, so a
+    window that shows fewer is traced again, and after ``TRACE_TRIES``
+    windows the check fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(times) == reps, f"{kernel}: the profiler saw {len(times)} of {reps} launches")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name)]
+        if kernel is None or len(times) == reps:
+            break
+        print(f"{kernel}: the profiler saw {len(times)} of {reps} launches; tracing again",
+              flush=True)
+    if kernel is None:
+        check(times, "the profiler saw no device activity of the library call")
+    else:
+        check(len(times) == reps, f"{kernel}: the profiler saw {len(times)} of {reps} "
+              f"launches in each of {TRACE_TRIES} windows")
     return sum(times) / reps / 1e3
 
 
@@ -187,12 +239,18 @@ def counts(IK, RS, PB, reset=False):
     """The launch counters by kernel entry of the JSON line, plus
     ``stage1_other``, the stage-1 launches of any other instantiation;
     zeroes them when ``reset``."""
+    from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
+
     if reset:
         IK.launches.clear()
-        RS.launches = PB.launches = 0
+        RS.launches.clear()
+        PB.launches = 0
+        GK.launches.update(fwd=0, bwd=0)
     out = {name: IK.launches[IK.instantiation(*key)] for name, key in STAGE1.items()}
     out["stage1_other"] = sum(IK.launches.values()) - sum(out.values())
-    out.update(resample_sample_and_hit=RS.launches, probe_fp32_rate=PB.launches)
+    out.update(resample_sample_and_hit=RS.launches["single"],
+               resample_batched=RS.launches["batched"], probe_fp32_rate=PB.launches,
+               gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd"])
     return out
 
 
@@ -370,12 +428,13 @@ def resample_phase(torch, G, RS, data, gen, rate):
                  plain, C * RS.OPS_PER_CANDIDATE, C * 41 + 24 * 16 * 4 + 16, rate)
 
 
-def profile_phase(torch, one, n, what, ms_per):
-    """Where the time of ``n`` calls of ``one`` (a step or an iteration)
-    goes, under torch.profiler. Prints the kernels per call, the device time
-    per call and its share of the unprofiled ms per call, and the costliest
-    device operations. Fails if a call copies between host and device or
-    waits for the device."""
+def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
+    """Where the time of ``n`` calls of ``one`` goes, under torch.profiler;
+    a call covers ``units`` steps, iterations or batches (``what``). Prints
+    the kernels, the device time and its share of the unprofiled ``ms_per``,
+    all per unit, and the costliest device operations. Fails if a call
+    copies between host and device or waits for the device, unless not
+    ``strict``: then it counts them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -401,20 +460,23 @@ def profile_phase(torch, one, n, what, ms_per):
                  if k.startswith(("Memcpy HtoD", "Memcpy DtoH")))
     kernels = sum(c for k, (_, c) in by_name.items()
                   if not k.startswith(("Memcpy", "Memset")))
+    n = n * units
+    plural = what + ("es" if what.endswith("ch") else "s")
     busy = sum(t for t, _ in by_name.values()) / 1e3 / n
     if not by_name:
         print("profile: no device activity recorded; device time not measured",
               flush=True)
     else:
-        print(f"profile over {n} {what}s: {kernels / n:.1f} kernels/{what}, "
+        print(f"profile over {n} {plural}: {kernels / n:.1f} kernels/{what}, "
               f"device time {busy:.4f} ms/{what} = {busy / ms_per:.1%} of "
               f"{ms_per:.4f} ms/{what}; host<->device copies {copies}; sync calls "
               f"{syncs}", flush=True)
         for name, (tot, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
             print(f"  {tot / 1e3 / n:9.4f} ms/{what} {calls / n:6.1f}/{what}  "
                   f"{name[:90]}", flush=True)
-    check(copies == 0, f"{copies} host<->device copies in {n} {what}s")
-    check(not any(syncs.values()), f"the {what} waits for the device: {syncs}")
+    if strict:
+        check(copies == 0, f"{copies} host<->device copies in {n} {plural}")
+        check(not any(syncs.values()), f"the {what} waits for the device: {syncs}")
 
 
 def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
@@ -621,6 +683,392 @@ def batch_path(torch, M, IK, RS, PB, LS, se3, src, n1, n2, lines):
     return obj, mix
 
 
+GATHER_SRC = "a_robust_registration_loss_tpu_torch/csrc/gather.cu"
+
+
+def gather_check(torch, GK, table, idx, g, what):
+    """Forward and backward kernels on (table, idx, g) against their plain
+    versions: forward bit for bit; backward equal to the plain version on
+    the CPU bit for bit, within 1e-6 x sum_q |g| of the plain version on
+    the card, two launches and the autograd path equal bit for bit.
+    Returns the largest |kernel - plain on the card| of the forward and of
+    the backward."""
+    N = table.shape[1]
+    out = GK.gather_rows_fwd(table, idx)
+    plain = GK.gather_rows_reference(table, idx)
+    check(torch.equal(out, plain), f"gather {what}: forward differs from the plain version")
+    inside = (idx >= 0) & (idx < N)
+    if bool(inside.all()):
+        check(torch.equal(out, torch.take_along_dim(table, idx.long()[..., None], 1)),
+              f"gather {what}: forward differs from take_along_dim")
+    else:
+        check(bool((out[~inside] == 0).all()), f"gather {what}: an out-of-range row is not zero")
+    d1, d2 = GK.gather_rows_bwd(g, idx, N), GK.gather_rows_bwd(g, idx, N)
+    check(torch.equal(d1, d2), f"gather {what}: two backward launches differ")
+    ref_cpu = GK.gather_rows_bwd_reference(g.cpu(), idx.cpu(), N)
+    check(torch.equal(d1.cpu(), ref_cpu),
+          f"gather {what}: backward differs from the plain version on the CPU")
+    ref = GK.gather_rows_bwd_reference(g, idx, N)
+    tol = 1e-6 * GK.gather_rows_bwd_reference(g.abs(), idx, N)
+    check(bool(((d1 - ref).abs() <= tol).all()),
+          f"gather {what}: backward beyond 1e-6 x sum |g| of the plain version on the card")
+    leaf = table.detach().requires_grad_(True)
+    (d3,) = torch.autograd.grad(GK.gather_rows(leaf, idx), leaf, g)
+    check(torch.equal(d3, d1), f"gather {what}: autograd's backward differs from the kernel's")
+    return float((out - plain).abs().max()), float((d1 - ref).abs().max())
+
+
+def gather_times(torch, GK, table, idx, g):
+    """Times and bounds of both kernels on these inputs: {"fwd": fields,
+    "bwd": fields}. The bound is bytes: values and indices read once, the
+    result written once. The backward's library call is ``index_add_`` alone,
+    onto a buffer zeroed once before the timed calls (the kernel writes
+    every element and needs no memset)."""
+    (B, N, C), Q = table.shape, idx.shape[1]
+    nbytes = 4 * (B * N * C + B * Q * C) + idx.element_size() * B * Q
+    flat = (idx.long() + torch.arange(B, device=idx.device)[:, None] * N).reshape(-1)
+    long_idx = idx.long()[..., None]
+    into = torch.zeros((B * N, C), device=table.device)
+    calls = {
+        "fwd": (lambda: GK.gather_rows_fwd(table, idx), "gather_fwd_kernel",
+                lambda: GK.gather_rows_reference(table, idx),
+                lambda: torch.take_along_dim(table, long_idx, 1)),
+        "bwd": (lambda: GK.gather_rows_bwd(g, idx, N), "gather_bwd_kernel",
+                lambda: GK.gather_rows_bwd_reference(g, idx, N),
+                lambda: into.index_add_(0, flat, g.reshape(B * Q, C))),
+    }
+    out = {}
+    for name, (call, kernel, plain, library) in calls.items():
+        out[name] = dict(ms=kernel_ms(torch, call, 20, kernel), call_ms=cuda_ms(torch, call, 20),
+                         plain_ms=cuda_ms(torch, plain, 5, warmup=1),
+                         library_ms=kernel_ms(torch, library, 20), ops=0, nbytes=nbytes,
+                         shape=f"B={B} N={N} C={C} Q={Q} idx {str(idx.dtype)[6:]}")
+    return out
+
+
+def gather_phase(torch, GK, rate):
+    """The gather kernels at ``GATHER_SHAPES``, random inputs from seed 4,
+    int32 indices (int64 too at the ragged shape). Returns {shape name:
+    {"fwd": fields, "bwd": fields}} of the two large shapes, each with
+    ``err``, its shape's largest |kernel - plain on the card|."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4)
+    times = {}
+    for name, (B, N, C, Q) in GATHER_SHAPES.items():
+        table = torch.randn((B, N, C), generator=gen, device=DEV)
+        g = torch.randn((B, Q, C), generator=gen, device=DEV)
+        lo, hi = (-3, N + 3) if name == "ragged" else (0, N)
+        idx = torch.randint(lo, hi, (B, Q), generator=gen, device=DEV, dtype=torch.int32)
+        errs = [gather_check(torch, GK, table, idx, g, name)]
+        if name == "ragged":
+            errs.append(gather_check(torch, GK, table, idx.long(), g, name + " int64"))
+        ef, eb = (max(e) for e in zip(*errs))
+        print(f"gather {name} (B={B} N={N} C={C} Q={Q}): forward equals the plain version "
+              "bit for bit; backward equals the plain version on the CPU bit for bit, "
+              f"max |kernel - plain on the card| {eb:.3g}, two launches equal", flush=True)
+        if name != "ragged":
+            times[name] = gather_times(torch, GK, table, idx, g)
+            times[name]["fwd"]["err"], times[name]["bwd"]["err"] = ef, eb
+            for k, m in times[name].items():
+                (_, _), (db, _) = bounds(0, m["nbytes"], rate)
+                print(f"  gather_{k} {m['shape']}: kernel {m['ms']:.4f} ms, call "
+                      f"{m['call_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, library call "
+                      f"{m['library_ms']:.4f} ms, bound {db:.5f} ms by bytes "
+                      f"({db / m['ms']:.1%} of it reached)", flush=True)
+    return times
+
+
+def resample_batch_phase(torch, G, RS, batch, rate):
+    """One batched launch at B = 4 and 150,000 candidates per sample equals
+    4 single launches bit for bit; its time and bounds."""
+    C = 10 * L3
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    u4 = torch.rand((B3, 4, C), generator=gen, device=DEV)
+    # the arguments batch_lines gives the kernel for this batch
+    box, c = batch["tar_box"], batch["centers"]
+    r = 0.5 * torch.linalg.vector_norm(box[:, 0] - box[:, -1], dim=-1)
+    fv = RS.prep_faces(G.bbox_face_vertices(batch["points_src_sample"]),
+                       G.bbox_face_vertices(batch["points_tar_sample"]))
+    before = RS.launches.copy()
+    cand, ok = RS.sample_and_hit(u4, r, c, fv)
+    check(RS.launches - before == {"batched": 1},
+          "the batched resampler call is not one batched launch")
+    for b in range(B3):
+        cand_b, ok_b = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
+        check(torch.equal(cand[b], cand_b) and torch.equal(ok[b], ok_b),
+              f"resampler: sample {b} of the batched launch differs from its single launch")
+    cand_r, ok_r = RS.sample_and_hit_reference(u4, r, c, fv)
+    err = float((cand - cand_r).abs().max())
+    flip = float((ok != ok_r).float().mean())
+    check(err <= 1e-4 and flip <= 1e-3,
+          f"batched resampler against its plain version: geometry {err}, labels {flip:.3%}")
+    print(f"resample batched B={B3} C={C}: one launch equals {B3} single launches bit for "
+          f"bit; acceptance {float(ok.float().mean()):.4f}; against the plain version "
+          f"max |cand| diff {err:.3g}, labels differ on {flip:.5%}", flush=True)
+
+    def call():
+        return RS.sample_and_hit(u4, r, c, fv)
+
+    ms = kernel_ms(torch, call, 20, "resample_kernel")
+    call_ms = cuda_ms(torch, call, 20)
+    plain = cuda_ms(torch, lambda: RS.sample_and_hit_reference(u4, r, c, fv), 2, warmup=1)
+    return entry("resample_batched", "a_robust_registration_loss_tpu_torch/csrc/resample.cu",
+                 "a_robust_registration_loss_tpu/ops/pallas/resample.py:43", err, ms, call_ms,
+                 plain, B3 * C * RS.OPS_PER_CANDIDATE, B3 * (C * 41 + 24 * 16 * 4 + 16), rate,
+                 shape=f"B={B3} C={C}")
+
+
+def dcp_batches(torch, G):
+    """``BATCHES3`` batches of ``B3`` pairs in the dataset dict's DCP form
+    (column convention R), made on the card with the port's own functions
+    from seed 0: noisy Fibonacci unit spheres, a rotation about z (0.25 rad
+    plus 0.02 per batch) and a translation, both clouds centred, FPS + 3-NN
+    neighbourhood buffers (B, F * 3, 3), the target's bbox corners."""
+    rng = np.random.default_rng(0)
+    i = np.arange(N3) + 0.5
+    phi = np.arccos(1 - 2 * i / N3)
+    th = np.pi * (1 + 5**0.5) * i
+    base = np.stack([np.sin(phi) * np.cos(th), np.sin(phi) * np.sin(th), np.cos(phi)], -1)
+    n = BATCHES3 * B3
+    src = (base + rng.standard_normal((n, N3, 3)) * 0.01).astype(np.float32)
+    ang = 0.25 + 0.02 * (np.arange(n) // B3)
+    R = np.zeros((n, 3, 3), np.float32)
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1], R[:, 2, 2] = (
+        np.cos(ang), -np.sin(ang), np.sin(ang), np.cos(ang), 1.0)
+    T = np.tile(np.asarray([0.05, -0.02, 0.01], np.float32), (n, 1))
+    tar = src @ R + T[:, None]
+    tar = tar - tar.mean(1, keepdims=True)
+    src = src - src.mean(1, keepdims=True)
+    src, tar = torch.tensor(src, device=DEV), torch.tensor(tar, device=DEV)
+    R, T = torch.tensor(R, device=DEV), torch.tensor(T, device=DEV)
+    data = {
+        "points_src_sample": src, "points_tar_sample": tar,
+        "points_based_neighs_src": G.sample_neighs(src, F3, 3),
+        "points_based_neighs_tar": G.sample_neighs(tar, F3, 3),
+        "tar_box": G.bounding_box_corners(tar), "centers": tar.mean(1),
+        # column convention: tar = R^T src + T before the centring
+        "R": R.transpose(-1, -2).contiguous(), "T": T,
+        "R_inv": R, "T_inv": -torch.einsum("bij,bj->bi", R, T),
+    }
+    return [{k: v[j * B3:(j + 1) * B3] for k, v in data.items()} for j in range(BATCHES3)]
+
+
+def dcp_model(torch, D, TD, LS):
+    """The DCP path's configuration and its model at the defaults' width on
+    the card, weights from seed 0: (cfg, model)."""
+    cfg = TD.DCPTrainConfig(loss=LS.LossConfig(n_lines=L3), model=D.DCPConfig())
+    model = D.DCP(cfg.model)
+    D.reset_parameters(model, torch.Generator().manual_seed(0))
+    return cfg, model.to(DEV)
+
+
+def dcp_path(torch, mods, cfg, model, batches):
+    """DCP's evaluation path at full width (see the module docstring, phase
+    10): ``evaluate`` over the batches, then the forward and gradient of
+    ``dcp_train_loss``. Returns the launches of each, counted in a run of
+    its own: (evaluate, gradient)."""
+    import tempfile
+
+    G, M, IK, RS, PB, LS, GK, D, TD = mods
+    n_params = sum(p.numel() for p in model.parameters())
+    sd = model.state_dict()
+    quiet = lambda msg: None
+
+    # evaluate over the 8 batches, OBJ dumps and Eval.json included
+    with tempfile.TemporaryDirectory() as tmp:
+        TD.evaluate(cfg, sd, batches[:1], tmp, log=quiet, save_objs=False)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts(IK, RS, PB, reset=True)
+        t0 = time.perf_counter()
+        summary = TD.evaluate(cfg, sd, batches, tmp, log=quiet, epoch=1)
+        torch.cuda.synchronize()
+        ms_eval = 1e3 * (time.perf_counter() - t0) / BATCHES3
+        eval_launches = counts(IK, RS, PB)
+        with open(os.path.join(tmp, "Eval.json")) as f:
+            check(json.load(f) == summary, "Eval.json differs from the returned summary")
+        objs = [f for f in os.listdir(tmp) if f.endswith(".obj")]
+        check(len(objs) == 4 * B3 * BATCHES3, f"{len(objs)} OBJ files written")
+        check_counts(eval_launches, {"resample_batched": 1, "stage1_pair_pts": 1}, BATCHES3,
+                     "DCP evaluate")
+        check(all(np.isfinite(v) for v in summary.values()), f"a metric is not finite: {summary}")
+        check(summary["loss_intersection"] > 0, "no usable line in the evaluation")
+        print(f"DCP evaluate: {BATCHES3} batches of B={B3} N={N3} F={F3} L={L3}, "
+              f"{n_params / 1e6:.2f} M parameters: {ms_eval:.4f} ms/batch (set-up, OBJ dumps "
+              f"and Eval.json included); loss_intersection {summary['loss_intersection']:.6f}, "
+              f"loss_chamfer {summary['loss_chamfer']:.6f}, r_rmse_ab {summary['r_rmse_ab']:.4f} "
+              f"deg, t_rmse_ab {summary['t_rmse_ab']:.6f}; launches {eval_launches}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+        t0 = time.perf_counter()
+        TD.evaluate(cfg, sd, batches, tmp, log=quiet, save_objs=False)
+        torch.cuda.synchronize()
+        ms_eval_bare = 1e3 * (time.perf_counter() - t0) / BATCHES3
+        print(f"DCP evaluate without the OBJ dumps: {ms_eval_bare:.4f} ms/batch", flush=True)
+        profile_phase(torch, lambda: TD.evaluate(cfg, sd, batches[:PROFILED3], tmp, log=quiet,
+                                                 save_objs=False),
+                      1, "batch", ms_eval_bare, units=PROFILED3, strict=False)
+
+    # forward and gradient of dcp_train_loss through the network
+    params = list(model.parameters())
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+
+    def iteration(batch):
+        out = TD.forward(model, batch)
+        loss, _ = LS.dcp_train_loss(batch, *out, cfg.loss, generator=gen)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), torch.stack([torch.isfinite(g).all() for g in grads]).all()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts(IK, RS, PB, reset=True)
+    results = []
+    for it in range(GRAD_ITERS3):
+        if it == WARMUP2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        results.append(iteration(batches[it % BATCHES3]))
+    torch.cuda.synchronize()
+    ms_grad = 1e3 * (time.perf_counter() - t0) / (GRAD_ITERS3 - WARMUP2)
+    grad_launches = counts(IK, RS, PB)
+    check_counts(grad_launches, {"resample_batched": 1, "stage1_pair_pts": 1}, GRAD_ITERS3,
+                 "DCP forward + gradient")
+    losses = torch.stack([r[0] for r in results]).cpu().numpy()
+    # the cross-covariances the SVD head took, read on one more forward per
+    # batch outside the timed and counted iterations
+    seen = []
+    hook = model.head.register_forward_hook(
+        lambda mod, args, out: seen.append(torch.linalg.svdvals(mod.correlation(*args)[0])))
+    with torch.no_grad():
+        for batch in batches:
+            TD.forward(model, batch)
+    hook.remove()
+    sv = torch.stack(seen).cpu().numpy()  # (batches, B, 3), descending
+    check(bool(torch.stack([r[1] for r in results]).all()), "a parameter's gradient is not finite")
+    check(np.isfinite(losses).all() and (losses > 0).all(), f"losses {losses}")
+    gap = np.minimum(sv[..., 0] - sv[..., 1], sv[..., 1] - sv[..., 2]) / sv[..., 0]
+    check(np.isfinite(sv).all() and gap.min() > 1e-4 and (sv[..., 2] / sv[..., 0]).min() > 1e-4,
+          f"the SVD head's input is degenerate: singular values {sv.reshape(-1, 3)}")
+    print(f"DCP forward + gradient: {GRAD_ITERS3} iterations, {ms_grad:.4f} ms/iteration over "
+          f"the last {GRAD_ITERS3 - WARMUP2}; loss {losses[0]:.6f} .. {losses[-1]:.6f}; every "
+          f"gradient finite; H's singular values {sv.min(axis=(0, 1))} to {sv.max(axis=(0, 1))}, "
+          f"least relative gap {gap.min():.4f}; launches {grad_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    state = {"it": 0}
+
+    def one():
+        iteration(batches[state["it"] % BATCHES3])
+        state["it"] += 1
+
+    profile_phase(torch, one, PROFILED3, "iteration", ms_grad, strict=False)
+
+    return eval_launches, grad_launches
+
+
+def dcp_kernels_phase(torch, mods, cfg, model, batch, rate):
+    """The kernels at the shapes and on the data the DCP path gives them
+    (see the module docstring, phase 9), before the paths' long profiles:
+    after those the tracer loses the records of short kernels. Returns the
+    launches of the ``graph_gather``, counted in a run of its own, the
+    ``gather`` kernels' fields on the graph's indices and ``stage1``'s
+    fields at this path's shape."""
+    G, M, IK, RS, PB, LS, GK, D, TD = mods
+    sd = model.state_dict()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(6)
+
+    # the gather kernels on the model's own graph: the kNN indices of the
+    # first DGCNN stage and the gradient that reaches the gathered features
+    x = batch["points_src_sample"]
+    k = cfg.model.dgcnn_k
+    idx = D.knn_graph_indices(x, k).reshape(B3, N3 * k)
+    edge = D.knn_graph_feature(x, k).detach().requires_grad_(True)
+    (up,) = torch.autograd.grad(model.emb_nn.embed_graph(edge).square().mean(), edge)
+    up = up[..., :3].reshape(B3, N3 * k, 3).contiguous()
+    counts(IK, RS, PB, reset=True)
+    table = x.detach().clone().requires_grad_(True)
+    got = GK.gather_rows(table, idx)
+    (d_table,) = torch.autograd.grad(got, table, up)
+    gather_launches = counts(IK, RS, PB)
+    check_counts(gather_launches, {"gather_fwd": 1, "gather_bwd": 1}, 1, "graph gather")
+    check(torch.equal(got.detach(), edge[..., :3].reshape(B3, N3 * k, 3)),
+          "gather_rows on the graph's indices differs from the features the model gathered")
+    check(torch.equal(d_table.cpu(), GK.gather_rows_bwd_reference(up.cpu(), idx.cpu(), N3)),
+          "gather_rows' backward of the model's upstream gradient differs from the plain "
+          "version on the CPU")
+    ef, eb = gather_check(torch, GK, x, idx, up, "DCP graph")
+    times = gather_times(torch, GK, x, idx, up)
+    times["fwd"]["err"], times["bwd"]["err"] = ef, eb
+    print(f"gather on DCP's graph (B={B3} N={N3} k={k}: Q={N3 * k}, C=3, int64 indices): "
+          "forward equals the model's gathered features bit for bit; backward of the model's "
+          f"upstream gradient equals the plain version's (CPU: bit for bit; card: {eb:.3g})",
+          flush=True)
+
+    # the card against the CPU's plain path at the path's own width: the
+    # network's (R_ab, t_ab); stage 1 as dcp_cal_loss launches it (both
+    # clouds, pts mode, B x F x L of the path) against its plain version on
+    # the card; then counts and loss on the same lines against the CPU
+    cpu_model = D.DCP(cfg.model)
+    cpu_model.load_state_dict({key: v.cpu() for key, v in sd.items()})
+    cpu_batch = {key: v.cpu() for key, v in batch.items()}
+    with torch.no_grad():
+        R_k, t_k = TD.forward(model, batch)[:2]
+        R_c, t_c = TD.forward(cpu_model, cpu_batch)[:2]
+        rerr = float((R_k.cpu() - R_c).abs().max())
+        terr = float((t_k.cpu() - t_c).abs().max())
+        u4 = LS.draw_uniforms(B3, L3, DEV, gen)
+        lines = LS.batch_lines(u4, batch["tar_box"], batch["centers"], L3,
+                               LS.dcp_transform(x, R_k, t_k), batch["points_tar_sample"], 0.5)
+        R_row = R_k.transpose(-1, -2)
+        n1, n2 = (LS._flat_neis(batch[key]) for key in
+                  ("points_based_neighs_src", "points_based_neighs_tar"))
+        # the transformed source neighbourhoods, as rigid_slots forms them
+        n1_t = (n1.reshape(B3, -1, 3) @ R_row + t_k[:, None, :]).reshape(n1.shape)
+        deltas = (M.neighborhood_delta(n1_t), M.neighborhood_delta(n2))
+        got = IK.stage1((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+        ref = IK.stage1_reference((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+        for g, r, what in zip(got, ref, ("count", "slot_idx", "d2", "recon", "slot_pts")):
+            check((g is None and r is None) or torch.equal(g, r),
+                  f"stage1 at the DCP path's shape: {what} differs from the plain version")
+        s1_err = float((got[4] - ref[4]).abs().max())
+        print(f"stage1 at the DCP path's shape: B={B3} F=({n1.shape[1]}, {n2.shape[1]}) L={L3} "
+              f"hits={int(got[0].sum())} max count={int(got[0].max())}: count, slot_idx, "
+              "slot_pts equal the plain version bit for bit", flush=True)
+
+        def call():
+            return IK.stage1((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+
+        F, kk = n1.shape[1] + n2.shape[1], cfg.loss.kmax
+        stage1 = dict(
+            err=s1_err, ms=kernel_ms(torch, call, 20, "stage1_kernel"),
+            call_ms=cuda_ms(torch, call, 20),
+            plain_ms=cuda_ms(torch, lambda: IK.stage1_reference(
+                (n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS), 1, warmup=1),
+            ops=B3 * L3 * F * IK.OPS_PER_PAIR,
+            nbytes=B3 * (L3 * 24 + F * 40 + 2 * L3 * (4 + 4 * kk + 36 * kk)),
+            shape=f"B={B3} clouds=2 F={n1.shape[1]} L={L3}")
+        out = {}
+        t0 = time.perf_counter()
+        for dev, b in ((DEV, batch), ("cpu", cpu_batch)):
+            args = (R_row.to(dev), t_k.to(dev), LS._flat_neis(b["points_based_neighs_src"]),
+                    LS._flat_neis(b["points_based_neighs_tar"]), lines.to(dev))
+            c1, c2 = M.rigid_slots(*args, cfg.loss.kmax)[2:]
+            per = LS._metric_batch_rt(*args, cfg.loss) / 5.0
+            out[dev] = (c1.cpu(), c2.cpu(), float(per.sum() / B3))
+    (c1k, c2k, lk), (c1c, c2c, lc) = out[DEV], out["cpu"]
+    print(f"DCP on the card vs the CPU's plain path: max |R_ab| diff {rerr:.3g}, |t_ab| "
+          f"diff {terr:.3g}; at L={L3} on the same lines stage-1 counts equal: "
+          f"{torch.equal(c1k, c1c) and torch.equal(c2k, c2c)} ({int(c1k.sum())} and "
+          f"{int(c2k.sum())} hits), loss {lk:.7f} vs {lc:.7f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(rerr <= 1e-4 and terr <= 1e-4, f"R_ab off by {rerr}, t_ab by {terr}")
+    check(torch.equal(c1k, c1c) and torch.equal(c2k, c2c) and int(c1k.sum()) > 0,
+          "DCP parity: stage-1 counts differ from the CPU's")
+    check(abs(lk - lc) <= 1e-4 * abs(lc), f"DCP loss {lk} vs the CPU's {lc}")
+    return dict(graph_gather=gather_launches, gather=times, stage1=stage1)
+
+
 def main():
     import torch
 
@@ -628,15 +1076,18 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from a_robust_registration_loss_tpu_torch.models import dcp as D
     from a_robust_registration_loss_tpu_torch.ops import geometry as G
     from a_robust_registration_loss_tpu_torch.ops import lines as LN
     from a_robust_registration_loss_tpu_torch.ops import metric as M
     from a_robust_registration_loss_tpu_torch.ops.cuda import _build
+    from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
     from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
     from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
     from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
     from a_robust_registration_loss_tpu_torch.se3 import se3
     from a_robust_registration_loss_tpu_torch.train import classical
+    from a_robust_registration_loss_tpu_torch.train import dcp as TD
     from a_robust_registration_loss_tpu_torch.train import losses as LS
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -669,18 +1120,58 @@ def main():
     resample = resample_phase(torch, G, RS, data, gen, rate)
     src2, n1, n2, lines2 = batch_data(torch, G, LS)
     modes = stage1_modes_phase(torch, M, IK, n1, n2, lines2, rate)
+    gather = gather_phase(torch, GK, rate)
+    t0 = time.perf_counter()
+    batches3 = dcp_batches(torch, G)
+    torch.cuda.synchronize()
+    print(f"DCP data: {BATCHES3} batches of B={B3} N={N3} F={F3}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    resample_batched = resample_batch_phase(torch, G, RS, batches3[0], rate)
+    mods3 = (G, M, IK, RS, PB, LS, GK, D, TD)
+    cfg3, model3 = dcp_model(torch, D, TD, LS)
+    dcp = dcp_kernels_phase(torch, mods3, cfg3, model3, batches3[0], rate)
     src = "a_robust_registration_loss_tpu_torch/csrc/intersect.cu"
     kernels = [pts] + [
         entry(name, src, "a_robust_registration_loss_tpu/ops/pallas/intersect.py:56",
               m["err"], m["ms"], m["call_ms"], m["plain_ms"], m["ops"], m["nbytes"], rate,
               shape=m["shape"])
-        for name, m in modes.items() if name != "stage1_pair_pts"] + [resample, probe]
+        for name, m in modes.items() if name != "stage1_pair_pts"] + [
+            resample, resample_batched, probe]
     p2 = modes["stage1_pair_pts"]
     (mb, _), (db, _) = bounds(p2["ops"], p2["nbytes"], rate)
     pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"], config2_call_ms=p2["call_ms"],
                config2_plain_ms=p2["plain_ms"], config2_bound_ms=db,
                config2_bound_ms_measured_rate=mb,
                max_abs_err=max(pts["max_abs_err"], p2["err"]))
+    p3 = dcp["stage1"]
+    (mb, _), (db, _) = bounds(p3["ops"], p3["nbytes"], rate)
+    pts.update(dcp_shape=p3["shape"], dcp_ms=p3["ms"], dcp_call_ms=p3["call_ms"],
+               dcp_plain_ms=p3["plain_ms"], dcp_bound_ms=db, dcp_bound_ms_measured_rate=mb,
+               max_abs_err=max(pts["max_abs_err"], p3["err"]))
+    print(f"stage1_pair_pts at the DCP path's shape ({p3['shape']}): kernel {p3['ms']:.4f} ms, "
+          f"call {p3['call_ms']:.4f} ms, plain {p3['plain_ms']:.3f} ms, bound {mb:.5f} ms at "
+          f"the measured rate ({mb / p3['ms']:.1%} of it reached), {db:.5f} ms at the data "
+          "sheet's", flush=True)
+    # the gather's entries: its error and times on the DCP graph's indices,
+    # the shape its path gives it, and beside them those at the two recorded
+    # shapes
+    for name, line in (("fwd", 47), ("bwd", 58)):
+        m = dcp["gather"][name]
+        e = entry(f"gather_{name}", GATHER_SRC,
+                  f"a_robust_registration_loss_tpu/ops/pallas/gather.py:{line}",
+                  m["err"], m["ms"], m["call_ms"], m["plain_ms"],
+                  0, m["nbytes"], rate, library_ms=m["library_ms"], shape=m["shape"])
+        e["by_shape"] = {
+            shape: dict(shape=t[name]["shape"], max_abs_err=t[name]["err"], ms=t[name]["ms"],
+                        call_ms=t[name]["call_ms"],
+                        plain_ms=t[name]["plain_ms"], library_ms=t[name]["library_ms"],
+                        bound_ms=bounds(0, t[name]["nbytes"], rate)[1][0], bound_by="bytes")
+            for shape, t in gather.items()}
+        kernels.append(e)
+        print(f"{e['name']} on DCP's graph ({e['shape']}): kernel {e['ms']:.4f} ms, call "
+              f"{e['call_ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library call "
+              f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms by bytes "
+              f"({e['bound_ms'] / e['ms']:.1%} of it reached)", flush=True)
     for k in kernels:
         print(f"{k['name']}: kernel {k['ms']:.4f} ms, wrapper call {k['call_ms']:.4f} ms "
               f"back to back (plain {k['plain_ms']:.3f} ms), bound "
@@ -690,8 +1181,11 @@ def main():
 
     classical_launches = main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg)
     objective, mix = batch_path(torch, M, IK, RS, PB, LS, se3, src2, n1, n2, lines2)
+    dcp_eval, dcp_grad = dcp_path(torch, mods3, cfg3, model3, batches3)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
-             "bench_loss_objective": objective, "batched_metric": mix}
+             "bench_loss_objective": objective, "batched_metric": mix,
+             "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
+             "dcp_graph_gather": dcp["graph_gather"]}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())

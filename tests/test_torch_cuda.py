@@ -15,7 +15,13 @@ and acceptance within 10% (the bars the JAX package holds its own two
 resampler paths to); each wrapper call counts one launch; the metrics on
 the card (rigid, batched generic, the trainers' batched rigid glue) within
 1e-4 relative (loss) and 5e-4 relative L2 (gradient) of the plain path on
-the CPU.
+the CPU; a batched resampler launch equal to B single launches bit for bit;
+the row gather's forward equal to its plain version bit for bit, its
+backward equal to the plain version on the CPU bit for bit (both sum in
+ascending q), within 1e-6 x sum |g| of the plain version on the card
+(atomics, in an order of their own) and equal between two launches; DCP's
+evaluation on the card with one resampler and one stage-1 launch per batch
+and the CPU path's R_ab and t_ab within 1e-4.
 """
 
 import numpy as np
@@ -25,11 +31,14 @@ import torch
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
+from a_robust_registration_loss_tpu_torch.models import dcp as D
+from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
 from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
 from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import classical as TC
+from a_robust_registration_loss_tpu_torch.train import dcp as TD
 from a_robust_registration_loss_tpu_torch.train import losses as LS
 
 torch.set_num_threads(1)
@@ -91,9 +100,9 @@ def test_resample_kernel_matches_plain(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     for C in (200_000, 777):
         u4 = torch.rand((4, C), generator=g, device=cuda_device)
-        before = RS.launches
+        before = (RS.launches["single"], RS.launches["batched"])
         cand, ok = RS.sample_and_hit(u4, r, center, fv)
-        assert RS.launches == before + 1
+        assert (RS.launches["single"], RS.launches["batched"]) == (before[0] + 1, before[1])
         cand_r, ok_r = RS.sample_and_hit_reference(u4, r, center, fv)
         assert float((cand - cand_r).abs().max()) <= 1e-4
         assert float((ok != ok_r).float().mean()) <= 1e-3
@@ -129,12 +138,12 @@ def test_classical_step_on_card(cuda_device):
     carry = (params, TC.init_adam(params), data["src"])
     step = TC.make_step(cfg, data)
     pts = IK.instantiation(2, False, False, True)
-    rs0, ik0, all0 = RS.launches, IK.launches[pts], sum(IK.launches.values())
+    rs0, ik0, all0 = RS.launches["single"], IK.launches[pts], sum(IK.launches.values())
     for _ in range(3):
         carry, m = step(carry, torch.rand((4, LN.ROUNDS * cfg.n_lines),
                                           generator=g, device=cuda_device))
         assert bool(m["valid"]) and bool(torch.isfinite(m["loss"]))
-    assert (RS.launches - rs0, IK.launches[pts] - ik0) == (3, 3)
+    assert (RS.launches["single"] - rs0, IK.launches[pts] - ik0) == (3, 3)
     assert sum(IK.launches.values()) - all0 == 3
 
     u4 = torch.rand((4, LN.ROUNDS * cfg.n_lines), generator=g, device=cuda_device)
@@ -288,3 +297,129 @@ def test_batched_wrappers_raise_on_what_they_cannot_take(cuda_device):
         IK.intersect_stage1(n[:2], lines, torch.zeros((2, 5), device=cuda_device))
     with pytest.raises(ValueError):
         PB.logistic_map(torch.ones(8, device=cuda_device), -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("shape", [(2, 40, 6, 100), (1, 128, 3, 128), (3, 17, 5, 33),
+                                   (2, 1000, 128, 5000), (2, 300, 260, 777)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gather_kernels_match_plain(cuda_device, shape, dtype):
+    """Forward, backward and the autograd path, with indices out of range
+    on both sides; one launch per call."""
+    B, N, C, Q = shape
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn((B, N, C), generator=g).to(cuda_device)
+    up = torch.randn((B, Q, C), generator=g).to(cuda_device)
+    idx = torch.randint(-2, N + 2, (B, Q), generator=g, dtype=dtype).to(cuda_device)
+    before = dict(GK.launches)
+    leaf = table.clone().requires_grad_(True)
+    out = GK.gather_rows(leaf, idx)
+    (grad,) = torch.autograd.grad(out, leaf, up)
+    assert GK.launches == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert torch.equal(out.detach(), GK.gather_rows_reference(table, idx))
+    bad = (idx < 0) | (idx >= N)
+    assert bool(bad.any()) and bool((out.detach()[bad] == 0).all())
+    assert torch.equal(grad, GK.gather_rows_bwd(up, idx, N))  # two launches, equal bits
+    assert torch.equal(grad.cpu(), GK.gather_rows_bwd_reference(up.cpu(), idx.cpu(), N))
+    ref = GK.gather_rows_bwd_reference(up, idx, N)
+    tol = 1e-6 * GK.gather_rows_bwd_reference(up.abs(), idx, N)
+    assert bool(((grad - ref).abs() <= tol).all())
+    inside = idx.clamp(0, N - 1)
+    assert torch.equal(GK.gather_rows_fwd(table, inside),
+                       torch.take_along_dim(table, inside.long()[..., None], 1))
+
+
+@pytest.mark.cuda
+def test_gather_raises_on_cuda_input_it_cannot_take(cuda_device):
+    table = torch.zeros((2, 8, 4), device=cuda_device)
+    idx = torch.zeros((2, 5), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        GK.gather_rows(table.double(), idx)
+    with pytest.raises(ValueError):
+        GK.gather_rows(table, idx.cpu())
+    with pytest.raises(ValueError):
+        GK.gather_rows_bwd(torch.zeros((2, 6, 4), device=cuda_device), idx, 8)
+
+
+@pytest.mark.cuda
+def test_batched_resampler_equals_single_launches(cuda_device):
+    """One launch for B samples, each with its own uniforms, sphere and
+    boxes, equals B single launches bit for bit; batch_lines makes one."""
+    B, n = 3, 4000
+    v1 = torch.stack([torch.tensor(_cloud(700, 20 + b)) for b in range(B)]).to(cuda_device)
+    v2 = torch.stack([torch.tensor(_cloud(700, 30 + b)) for b in range(B)]).to(cuda_device) + 0.05
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    u4 = torch.rand((B, 4, LN.ROUNDS * n), generator=g, device=cuda_device)
+    fv = RS.prep_faces(G.bbox_face_vertices(v1), G.bbox_face_vertices(v2))
+    r = torch.tensor([2.2, 1.8, 2.6], device=cuda_device)
+    c = v2.mean(1)
+    before = (RS.launches["single"], RS.launches["batched"])
+    cand, ok = RS.sample_and_hit(u4, r, c, fv)
+    assert (RS.launches["single"], RS.launches["batched"]) == (before[0], before[1] + 1)
+    for b in range(B):
+        cand_b, ok_b = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
+        assert torch.equal(cand[b], cand_b) and torch.equal(ok[b], ok_b)
+    assert (RS.launches["single"], RS.launches["batched"]) == (before[0] + B, before[1] + 1)
+    box = G.bounding_box_corners(v2)
+    lines = LS.batch_lines(u4, box, c, n, v1, v2, radius_scale=0.5)
+    assert (RS.launches["single"], RS.launches["batched"]) == (before[0] + B, before[1] + 2)
+    assert lines.shape == (B, n, 6)
+    radius = 0.5 * torch.linalg.vector_norm(box[:, 0] - box[:, -1], dim=-1)
+    for b in range(B):
+        assert torch.equal(lines[b], LN.resample_lines(u4[b], radius[b], c[b], n, v1[b], v2[b]))
+    with pytest.raises(ValueError):
+        RS.sample_and_hit(u4, r[:2], c, fv)
+
+
+def _dcp_batch(B, N, F, seed):
+    """A DCP batch on the CPU: two noisy ellipsoids related by a rotation
+    about z and a translation, column convention."""
+    rng = np.random.default_rng(seed)
+    src = torch.stack([torch.tensor(_cloud(N, seed + b)) for b in range(B)])
+    a = 0.2
+    R = torch.tensor([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
+                     dtype=torch.float32)
+    T = torch.tensor(rng.uniform(-0.05, 0.05, 3), dtype=torch.float32)
+    tar = src @ R + T
+    tar = tar - tar.mean(1, keepdim=True)
+    src = src - src.mean(1, keepdim=True)
+    rep = lambda x: x[None].repeat(B, *[1] * x.dim())
+    return {"points_src_sample": src, "points_tar_sample": tar,
+            "points_based_neighs_src": G.sample_neighs(src, F, 3),
+            "points_based_neighs_tar": G.sample_neighs(tar, F, 3),
+            "tar_box": G.bounding_box_corners(tar), "centers": tar.mean(1),
+            "R": rep(R.T.contiguous()), "T": rep(T), "R_inv": rep(R), "T_inv": rep(-R @ T)}
+
+
+@pytest.mark.cuda
+def test_dcp_evaluate_on_card(cuda_device, tmp_path):
+    """evaluate on the card: one resampler and one stage-1 launch per
+    batch, finite metrics, Eval.json and the OBJ dumps; the network on the
+    card agrees with the CPU path; the gradient of dcp_train_loss reaches
+    every parameter."""
+    cfg = TD.DCPTrainConfig(loss=LS.LossConfig(n_lines=2000),
+                            model=D.DCPConfig(emb_dims=64, ff_dims=128, dgcnn_k=8))
+    model = D.DCP(cfg.model)
+    D.reset_parameters(model, torch.Generator().manual_seed(0))
+    loader = [_dcp_batch(2, 256, 128, seed) for seed in (40, 50)]
+    pts = IK.instantiation(2, False, False, True)
+    before = (RS.launches["batched"], IK.launches[pts], sum(IK.launches.values()))
+    summary = TD.evaluate(cfg, model.state_dict(), loader, str(tmp_path), log=lambda m: None)
+    after = (RS.launches["batched"], IK.launches[pts], sum(IK.launches.values()))
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
+    assert all(np.isfinite(v) for v in summary.values()) and summary["loss_intersection"] > 0
+    assert (tmp_path / "Eval.json").exists() and (tmp_path / "0_3src_gt.obj").exists()
+
+    batch = {k: v.to(cuda_device) for k, v in loader[0].items()}
+    with torch.no_grad():
+        R_c, t_c = TD.forward(model, loader[0])[:2]
+    model.to(cuda_device)
+    out = TD.forward(model, batch)
+    assert float((out[0].detach().cpu() - R_c).abs().max()) <= 1e-4
+    assert float((out[1].detach().cpu() - t_c).abs().max()) <= 1e-4
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    loss, mon = LS.dcp_train_loss(batch, *out, cfg.loss, generator=g)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert float(loss) > 0 and all(bool(torch.isfinite(x).all()) for x in grads)
+    assert sum(float(x.abs().sum()) for x in grads) > 0

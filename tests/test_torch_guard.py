@@ -54,8 +54,14 @@ def test_importing_the_port_loads_no_jax():
             "import a_robust_registration_loss_tpu_torch.ops.metric\n"
             "import a_robust_registration_loss_tpu_torch.ops.cuda.probe\n"
             "import a_robust_registration_loss_tpu_torch.train.losses\n"
+            "import a_robust_registration_loss_tpu_torch.train.dcp\n"
+            "import a_robust_registration_loss_tpu_torch.models.dcp\n"
+            "import a_robust_registration_loss_tpu_torch.models.common\n"
+            "import a_robust_registration_loss_tpu_torch.models.transplant\n"
+            "import a_robust_registration_loss_tpu_torch.eval.metrics\n"
+            "import a_robust_registration_loss_tpu_torch.ops.cuda.gather\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'optax', 'a_robust_registration_loss_tpu')]\n"
+            "('jax', 'jaxlib', 'optax', 'flax', 'a_robust_registration_loss_tpu')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -86,3 +92,27 @@ def test_probe_and_metric_refuse_a_missing_card(monkeypatch):
     x = torch.zeros((4, 9), device="meta")
     with pytest.raises(ValueError):
         M.find_intersections(x, torch.zeros((3, 6), device="meta"))
+
+
+def test_evaluate_and_gather_refuse_a_missing_card(monkeypatch, tmp_path):
+    """DCP's evaluation runs on the card unless asked for the CPU, and the
+    row gather takes CPU tensors (plain version) or CUDA tensors (kernel):
+    nothing else, and no fallback."""
+    from a_robust_registration_loss_tpu_torch.models import dcp as D
+    from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
+    from a_robust_registration_loss_tpu_torch.train import dcp as TD
+    from a_robust_registration_loss_tpu_torch.train import losses as LS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TD.DCPTrainConfig(loss=LS.LossConfig(n_lines=8),
+                            model=D.DCPConfig(emb_nn="pointnet", emb_dims=32, ff_dims=64))
+    sd = D.DCP(cfg.model).state_dict()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.evaluate(cfg, sd, [], str(tmp_path))
+    with pytest.raises(ValueError, match="no batch"):  # asked for the CPU: it runs
+        TD.evaluate(cfg, sd, [], str(tmp_path), device="cpu")
+    table = torch.zeros((1, 4, 3))
+    idx = torch.zeros((1, 2), dtype=torch.int64)
+    assert GK.gather_rows(table, idx).shape == (1, 2, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        GK.gather_rows(table.to("meta"), idx.to("meta"))

@@ -13,7 +13,9 @@ contracts the kernel's multiply-adds into FMAs while the port rounds every
 operation on its own. On this scene the JAX package's own Pallas (interpret)
 and XLA paths label a sizeable share of the same candidates differently,
 and it holds them to the same rate bar (tests/test_pallas.py, bench.py's
-gate). The one-to-one label bar (at most 0.1% disagreement) is held between
+gate). A batched call of the plain path (leading axis B on every argument,
+the trainers' per-sample lines) equals the per-sample loop exactly. The
+one-to-one label bar (at most 0.1% disagreement) is held between
 the CUDA kernel and its plain version, which share their arithmetic:
 ``tests/test_torch_cuda.py`` and chip_smoke.py.
 """
@@ -133,6 +135,35 @@ def test_resample_lines_keeps_first_accepted(scene):
     np.testing.assert_array_equal(
         LN.resample_lines(u4, float(R_SPHERE), t(center), n, t(v1), t(v2)).numpy(),
         out.numpy())
+
+
+def test_batched_plain_path_equals_per_sample_loop(scene):
+    """sample_and_hit, the first-n fill and resample_lines with a leading
+    batch axis equal B unbatched calls bit for bit."""
+    v1, v2, _, _, center = scene
+    B, n = 3, 120
+    g = torch.Generator().manual_seed(6)
+    u4 = torch.rand((B, 4, LN.ROUNDS * n), generator=g)
+    shift = torch.tensor([[0.0, 0.0, 0.0], [0.05, -0.1, 0.02], [-0.2, 0.1, 0.1]])
+    a = t(v1)[None] + shift[:, None]
+    b = t(v2)[None] * torch.tensor([1.0, 0.9, 1.1])[:, None, None]
+    r = torch.tensor([2.2, 1.9, 2.5])
+    c = t(center)[None] + shift
+    fv = RS.prep_faces(G.bbox_face_vertices(a), G.bbox_face_vertices(b))
+    assert fv.shape == (B, 24, 16)
+    cand, ok = RS.sample_and_hit(u4, r, c, fv)
+    lines = LN.resample_lines(u4, r, c, n, a, b)
+    assert cand.shape == (B, LN.ROUNDS * n, 6) and lines.shape == (B, n, 6)
+    for s in range(B):
+        fv_s = RS.prep_faces(G.bbox_face_vertices(a[s][None])[0],
+                             G.bbox_face_vertices(b[s][None])[0])
+        assert torch.equal(fv[s], fv_s)
+        cand_s, ok_s = RS.sample_and_hit(u4[s], r[s], c[s], fv_s)
+        assert torch.equal(cand[s], cand_s) and torch.equal(ok[s], ok_s)
+        assert 0.02 < float(ok_s.float().mean()) < 0.98
+        assert torch.equal(LN._fill_first_n_gather(cand, ok, n)[s],
+                           LN._fill_first_n_gather(cand_s, ok_s, n))
+        assert torch.equal(lines[s], LN.resample_lines(u4[s], r[s], c[s], n, a[s], b[s]))
 
 
 def test_wrapper_refuses_other_devices(scene):

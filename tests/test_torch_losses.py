@@ -78,6 +78,23 @@ def test_batch_lines_takes_jax_split_uniforms(data):
         assert filled > 0.5 * N_LINES and abs(filled - filled_j) <= 0.1 * filled_j
 
 
+def test_batch_lines_is_one_batched_call_without_gradient(data, monkeypatch):
+    """The whole batch goes through the candidate stage in one call (one
+    kernel launch on a card), and line sampling carries no gradient."""
+    from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
+
+    calls = []
+    real = RS.sample_and_hit
+    monkeypatch.setattr(RS, "sample_and_hit",
+                        lambda u4, *a: calls.append(tuple(u4.shape)) or real(u4, *a))
+    u4 = torch.rand((B, 4, LN.ROUNDS * N_LINES), generator=torch.Generator().manual_seed(2))
+    src = t(data["src"]).requires_grad_(True)
+    lines = LS.batch_lines(u4, t(data["tar_box"]), t(data["centers"]), N_LINES, src,
+                           t(data["tar"]), radius_scale=0.5)
+    assert calls == [(B, 4, LN.ROUNDS * N_LINES)]
+    assert lines.shape == (B, N_LINES, 6) and not lines.requires_grad
+
+
 def test_flat_neis_and_config(data):
     flat = LS._flat_neis(t(data["nsrc"]))
     np.testing.assert_array_equal(flat.numpy(), np.asarray(JLS._flat_neis(jnp.asarray(data["nsrc"]))))

@@ -50,3 +50,51 @@ def random_problem(seed=7, f1=333, f2=301, n_lines=257):
 def t(x, device="cpu"):
     """numpy -> torch tensor (a copy, so the test owns it)."""
     return torch.tensor(np.asarray(x), device=device)
+
+
+def make_batch(B=2, N=48, F=24, seed=0, rot=0.25):
+    """A synthetic batch in the dataset dict's contract, DCP form (column
+    convention R), as numpy arrays: noisy Fibonacci spheres, a known
+    rotation about z and a translation, FPS + 3-NN neighbourhood buffers
+    (B, F * 3, 3) and the target's bbox corners from the JAX package.
+    ``chip_smoke.py:dcp_batch`` makes the same batch with the port's own
+    functions."""
+    rng = np.random.default_rng(seed)
+    src = np.stack([sphere_cloud(N, rng, noise=0.01) for _ in range(B)])
+    R = np.array([[np.cos(rot), -np.sin(rot), 0],
+                  [np.sin(rot), np.cos(rot), 0], [0, 0, 1]], np.float32)
+    T = np.asarray([0.05, -0.02, 0.01], np.float32)
+    tar = src @ R + T
+    tar = tar - tar.mean(1, keepdims=True)
+    src = src - src.mean(1, keepdims=True)
+    return {
+        "points_src_sample": src, "points_tar_sample": tar,
+        "points_based_neighs_src": np.stack([neighs(s, F).reshape(-1, 3) for s in src]),
+        "points_based_neighs_tar": np.stack([neighs(x, F).reshape(-1, 3) for x in tar]),
+        "tar_box": np.array(JG.bounding_box_corners(jnp.asarray(tar))),
+        "centers": tar.mean(1),
+        # column convention: tar = R^T src + T (before centring)
+        "R": np.stack([R.T] * B), "T": np.stack([T] * B),
+        "R_inv": np.stack([R] * B), "T_inv": np.stack([-R @ T] * B),
+    }
+
+
+def flax_params_numpy(params):
+    """A flax parameter tree -> the same tree of numpy arrays."""
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def jax_uniforms(key, batch, n_lines, rounds=10):
+    """The uniforms ``batch_lines`` of the JAX package draws from ``key``:
+    (B, 4, rounds * n_lines)."""
+    return np.stack([np.asarray(jax.random.uniform(k, (4, rounds * n_lines)))
+                     for k in jax.random.split(key, batch)])
+
+
+def perturbed(params, seed, scale=0.1):
+    """A flax parameter tree as numpy arrays, each leaf plus seeded Gaussian
+    noise: biases and norm scales leave their trivial initial values."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + scale * rng.standard_normal(p.shape).astype(np.float32),
+        params)
