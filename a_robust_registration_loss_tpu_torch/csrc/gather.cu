@@ -16,40 +16,59 @@
 // neighbouring addresses within a table row; the table is small and stays
 // in L2. Bound: bytes (table and idx read once, out written once).
 //
-// Backward: deterministic, no atomics, two launches give equal bits. A block
-// owns kRows table rows x kCols columns of one sample. It scans that
-// sample's idx in chunks of kList queries, kPer consecutive queries per
-// thread, and compacts the queries that fall into its rows into a list in
-// shared memory, in ascending q (a prefix sum of the hit counts in thread
-// order). Then it walks the list in pieces of kStage entries: all threads
-// copy the pieces' g rows into shared memory (independent, coalesced
-// loads, so the ordered part waits for no global load), and then the
-// owners add, each finding its entries of the piece from a warp ballot.
-// The block's threads form groups of cw (a power of two >=
-// min(C, kCols)) threads, one per column; row r belongs to group r mod
-// groups, so each (row, column) accumulator in shared memory has exactly
-// one owner, which adds its g values in ascending q, starting from 0: the
-// order of a sequential index_add. Every block scans all of idx, so the
-// scan costs (N / kRows) * Q index reads per sample, from L2: fine for
-// tables of a few thousand rows, the shapes this system has. Bound: bytes
-// (g and idx read once, d_table written once).
+// Backward: deterministic, no atomics on floats, two launches give equal
+// bits. Bound: bytes (g and idx read once, d_table written once); at the
+// shapes this system has (a few thousand rows, C of 3 to 6) that bound lies
+// under the time of one launch, so what the design fights is latency: every
+// (row, column) sum is a serial chain in ascending q, the order of a
+// sequential index_add_. The queries are therefore sorted by row once per
+// sample, and then all rows are summed at once, each by its own lanes with
+// several g rows in flight. Three kernels per backward:
+//
+// 1. gather_bwd_hist_kernel: grid (G, B). Block j of a sample counts the
+//    rows of its contiguous chunk of the queries with integer atomics in
+//    shared memory (integers commute: deterministic) and writes the N + 1
+//    counts to scratch; row N is the dump row of every idx outside [0, N).
+// 2. gather_bwd_place_kernel: grid (G, B), a stable counting sort. A block
+//    sums the blocks' counts into the row starts (an exclusive scan over
+//    the rows; block 0 writes start[b, 0..N]) and into its own base per
+//    row (the rows' counts in the earlier blocks). Each of its W warps owns
+//    a contiguous sub-range of the chunk and a private counter per row in
+//    shared memory: a first walk counts (integer atomics again), a scan per
+//    row over the warps turns the counters into offsets, and a second walk
+//    places query q at offset + (lanes of its step before it with the same
+//    row). A step's lanes draw their places with an atomic add on the
+//    offset; only if a lane drew another place than the offset it read, so
+//    that some row occurs twice in the step, the lanes that hold a row find
+//    each other with a ballot per bit of the row and take their places in
+//    lane order. perm[b] then holds the queries grouped by row, ascending q
+//    inside each row, the dump row's as the tail.
+// 3. gather_bwd_sum_kernel: one group of gw lanes per table row (gw the
+//    power of two >= the row's width in floats or float4s, at most 32;
+//    wider rows take grid y), grid over all B x N rows, no barrier. A lane
+//    walks perm[start[n] : start[n + 1]] and adds into a register from 0
+//    in that order. The addresses come from perm, not from the sum, so
+//    kAhead loads of g are in flight ahead of the adds and the next kAhead
+//    perm entries are fetched beside them. Rows with no query write zeros.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kFwdThreads = 256;
-constexpr int kBwdThreads = 512;
-constexpr int kRows = 32;    // table rows a backward block owns
-constexpr int kCols = 128;   // columns a backward block owns
-constexpr int kPer = 8;      // consecutive queries a thread scans per chunk
-constexpr int kList = kPer * kBwdThreads;  // queries scanned per chunk
-constexpr int kStage = 32;   // list entries whose g rows are staged at once
-static_assert(kStage == 32, "the walk gives each lane of a warp one entry");
-static_assert(kList <= 65536, "list_q holds q - q0 in 16 bits");
+constexpr int kHistThreads = 256;
+constexpr int kSumThreads = 128;
+constexpr int kAhead = 16;  // g rows a lane of the sum keeps in flight
+constexpr int kSteps = 4;  // steps of 32 queries whose idx a warp of the sort loads at once
+constexpr int kMaxRowBits = 16;  // a row below 2^16: 227 KB hold 3 counters for under 2^15 rows
+constexpr int kMaxShared = 227 * 1024;  // dynamic shared memory of a block
 
 __device__ __forceinline__ float zero_of(float) { return 0.f; }
 __device__ __forceinline__ float4 zero_of(float4) {
   return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // V is float or float4; Cv is the row width in units of V.
@@ -69,120 +88,202 @@ gather_fwd_kernel(const V* __restrict__ table, const I* __restrict__ idx,
   out[b * QCv + e] = v;
 }
 
+// The row a query adds to; N, the dump row, for an idx outside [0, N).
 template <typename I>
-__global__ void __launch_bounds__(kBwdThreads)
-gather_bwd_kernel(const float* __restrict__ g, const I* __restrict__ idx,
-                  float* __restrict__ dtab, int N, int C, int Q, int cw) {
-  __shared__ float acc[kRows * kCols];
-  __shared__ float stage[kStage * kCols];
-  __shared__ unsigned short list_q[kList];  // q - q0 of the chunk
-  __shared__ unsigned char list_r[kList];
-  __shared__ int warp_hits[kBwdThreads / 32];
+__device__ __forceinline__ int row_of(I v, int N) {
+  const long long n = static_cast<long long>(v);
+  return n >= 0 && n < N ? static_cast<int>(n) : N;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t b = blockIdx.z;
-  const long long n0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int c0 = blockIdx.y * kCols;
-  const int ncol = min(C - c0, kCols);  // the columns this block owns
-  const int groups = kBwdThreads / cw;  // cw and groups are powers of two
-  const int grp = tid / cw;
-  const int c = tid - grp * cw;
-  const bool col_ok = c < ncol;
+// The rows of the queries q, q + 32, ... of kSteps steps of a warp's walk;
+// N + 1, no row, past the end of the walk.
+template <typename I>
+__device__ __forceinline__ void load_rows(int (&r)[kSteps], const I* __restrict__ idx_b,
+                                          int q, int end, int N) {
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u)
+    r[u] = q + 32 * u < end ? row_of(idx_b[q + 32 * u], N) : N + 1;
+}
 
-  for (int k = tid; k < kRows * kCols; k += kBwdThreads) acc[k] = 0.f;
+// The lanes of the warp that hold the same row r, a value below
+// 1 << kMaxRowBits: a ballot per bit of r, the ballots independent of each
+// other (a bit that no row has set leaves the mask as it is).
+__device__ __forceinline__ unsigned same_row_lanes(int r) {
+  unsigned same = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < kMaxRowBits; ++k) {
+    const bool bit = (r >> k) & 1;
+    const unsigned with_bit = __ballot_sync(0xffffffffu, bit);
+    same &= bit ? with_bit : ~with_bit;
+  }
+  return same;
+}
+
+// counts (B, G, N + 1): the rows' counts in block j's chunk of the queries.
+template <typename I>
+__global__ void __launch_bounds__(kHistThreads)
+gather_bwd_hist_kernel(const I* __restrict__ idx, int* __restrict__ counts,
+                       int N, int Q, int chunk) {
+  extern __shared__ int shared_ints[];
+  int* hist = shared_ints;  // N + 1
+  const int NR = N + 1;
+  const int j = blockIdx.x, G = gridDim.x;
+  const size_t b = blockIdx.y;
+  for (int n = threadIdx.x; n < NR; n += kHistThreads) hist[n] = 0;
+  __syncthreads();
+  const long long q0 = static_cast<long long>(j) * chunk;
+  const int q1 = static_cast<int>(min(static_cast<long long>(Q), q0 + chunk));
   const I* idx_b = idx + b * Q;
-  const float* g_b = g + b * Q * C + c0;
+  for (long long q = q0 + threadIdx.x; q < q1; q += kHistThreads)
+    atomicAdd(&hist[row_of(idx_b[q], N)], 1);
+  __syncthreads();
+  int* out = counts + (b * G + j) * NR;
+  for (int n = threadIdx.x; n < NR; n += kHistThreads) out[n] = hist[n];
+}
 
-  for (int q0 = 0; q0 < Q; q0 += kList) {
-    // scan: thread t takes the kPer consecutive queries from q0 + kPer * t,
-    // so thread order is query order
-    const int qb = q0 + tid * kPer;
-    int rows[kPer];
-    int mine = 0;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      rows[u] = -1;
-      if (qb + u < Q) {
-        const long long r = static_cast<long long>(idx_b[qb + u]) - n0;
-        if (r >= 0 && r < kRows && n0 + r < N) rows[u] = static_cast<int>(r);
-      }
-      mine += rows[u] >= 0;
+// start (B, N + 1), perm (B, Q): see the notes at the top. The block has
+// W = blockDim.x / 32 warps and (W + 2) * (N + 1) ints of shared memory.
+template <typename I>
+__global__ void __launch_bounds__(1024)
+gather_bwd_place_kernel(const I* __restrict__ idx, const int* __restrict__ counts,
+                        int* __restrict__ start, int* __restrict__ perm, int N,
+                        int Q, int chunk) {
+  extern __shared__ int shared_ints[];
+  __shared__ int warp_sums[32];
+  const int NR = N + 1;
+  const int T = blockDim.x, W = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = blockIdx.x, G = gridDim.x;
+  const size_t b = blockIdx.y;
+  int* cnt = shared_ints;   // (W, NR): a warp's count, then offset, per row
+  int* pre = cnt + W * NR;  // (NR): the row's queries in the earlier blocks
+  int* tot = pre + NR;      // (NR): the row's queries, then the row's start
+
+  for (int k = tid; k < W * NR; k += T) cnt[k] = 0;
+  const int* counts_b = counts + b * G * NR;
+  for (int n = tid; n < NR; n += T) {
+    int p = 0, t = 0;
+#pragma unroll 8
+    for (int jj = 0; jj < G; ++jj) {
+      const int c = counts_b[jj * NR + n];
+      p += jj < j ? c : 0;
+      t += c;
     }
-    int incl = mine;  // inclusive prefix of the hits within the warp
+    pre[n] = p;
+    tot[n] = t;
+  }
+  __syncthreads();
+
+  // exclusive scan of tot over the rows; a thread takes `per` rows in a run
+  const int per = (NR + T - 1) / T;
+  const int r0 = min(NR, tid * per), r1 = min(NR, r0 + per);
+  int local = 0;
+  for (int n = r0; n < r1; ++n) local += tot[n];
+  int incl = local;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += up;
-    }
-    if (lane == 31) warp_hits[warp] = incl;
-    __syncthreads();
-    int p = incl - mine, count = 0;
-    for (int w = 0; w < kBwdThreads / 32; ++w) {
-      const int h = warp_hits[w];
-      if (w < warp) p += h;
-      count += h;
-    }
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int offset = incl - local;
+  for (int w = 0; w < warp; ++w) offset += warp_sums[w];
+  for (int n = r0; n < r1; ++n) {
+    const int c = tot[n];
+    tot[n] = offset;
+    offset += c;
+  }
+  __syncthreads();
+  if (j == 0)
+    for (int n = tid; n < NR; n += T) start[b * NR + n] = tot[n];
+
+  // the warp's sub-range of the block's chunk, walked 32 queries a step
+  const long long c0 = static_cast<long long>(j) * chunk;
+  const int q1 = static_cast<int>(min(static_cast<long long>(Q), c0 + chunk));
+  const int q0 = static_cast<int>(min(static_cast<long long>(q1), c0));
+  const int wchunk = (chunk + W - 1) / W;
+  const long long w0 = static_cast<long long>(q0) + static_cast<long long>(warp) * wchunk;
+  const int wq0 = static_cast<int>(min(static_cast<long long>(q1), w0));
+  const int wq1 = static_cast<int>(min(static_cast<long long>(q1), w0 + wchunk));
+  const I* idx_b = idx + b * Q;
+  int* mine = cnt + warp * NR;
+  const unsigned below = (1u << lane) - 1u;
+
+  // Both walks take kSteps steps a round and load the round's idx before
+  // they touch a counter, so a round waits for global memory once. The
+  // first only counts: integer atomics on the warp's own counters.
+  for (int qb = wq0; qb < wq1; qb += 32 * kSteps) {
+    int r[kSteps];
+    load_rows(r, idx_b, qb + lane, wq1, N);
 #pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      if (rows[u] >= 0) {
-        list_q[p] = static_cast<unsigned short>(tid * kPer + u);
-        list_r[p] = static_cast<unsigned char>(rows[u]);
-        ++p;
-      }
-    __syncthreads();
-    // the list holds this chunk's queries of the block's rows, ascending.
-    // Walk it in pieces: all threads stage the pieces' g rows in shared
-    // memory (independent, coalesced loads), then every owner adds its
-    // rows' values in list order
-    for (int p0 = 0; p0 < count; p0 += kStage) {
-      const int m = min(kStage, count - p0);
-      {
-        // a thread starts all of its loads before its first store
-        constexpr int kLoads = kStage * kCols / kBwdThreads;
-        float v[kLoads];
-#pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-          const int k = tid + i * kBwdThreads;
-          const int e = k / ncol, cc = k - e * ncol;
-          v[i] = k < m * ncol
-                     ? g_b[static_cast<size_t>(q0 + list_q[p0 + e]) * C + cc]
-                     : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-          const int k = tid + i * kBwdThreads;
-          const int e = k / ncol, cc = k - e * ncol;
-          if (k < m * ncol) stage[e * kCols + cc] = v[i];
-        }
-      }
-      __syncthreads();
-      // lane e of every warp looks at entry e's row (kStage is the warp
-      // size); a ballot per group of the warp gives each thread the mask
-      // of its group's entries, which it then adds in ascending order
-      const int r_e = lane < m ? list_r[p0 + lane] : -1;
-      unsigned mask = 0;
-      const int per_warp = cw >= 32 ? 1 : 32 / cw;  // groups in this warp
-      const int g0 = cw >= 32 ? grp : warp * per_warp;
-      for (int gi = 0; gi < per_warp; ++gi) {
-        const unsigned hit = __ballot_sync(
-            0xffffffffu, r_e >= 0 && (r_e & (groups - 1)) == g0 + gi);
-        if (g0 + gi == grp) mask = hit;
-      }
-      if (!col_ok) mask = 0;
-      while (mask) {
-        const int e = __ffs(mask) - 1;
-        mask &= mask - 1;
-        acc[list_r[p0 + e] * kCols + c] += stage[e * kCols + c];
-      }
-      __syncthreads();  // the next piece or chunk overwrites stage and list
+    for (int u = 0; u < kSteps; ++u)
+      if (r[u] < NR) atomicAdd(&mine[r[u]], 1);
+  }
+  __syncthreads();
+  for (int n = tid; n < NR; n += T) {
+    int run = tot[n] + pre[n];
+    for (int w = 0; w < W; ++w) {
+      const int c = cnt[w * NR + n];
+      cnt[w * NR + n] = run;
+      run += c;
     }
   }
-
-  for (int k = tid; k < kRows * kCols; k += kBwdThreads) {
-    const int r = k / kCols, cc = k - r * kCols;
-    if (n0 + r < N && cc < ncol)
-      dtab[(b * N + n0 + r) * C + c0 + cc] = acc[k];
+  __syncthreads();
+  int* perm_b = perm + b * Q;
+  for (int qb = wq0; qb < wq1; qb += 32 * kSteps) {
+    int r[kSteps];
+    load_rows(r, idx_b, qb + lane, wq1, N);
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const bool valid = r[u] < NR;
+      const int before = valid ? mine[r[u]] : 0;
+      __syncwarp();  // every lane has read the offset before any lane moves it
+      // the lanes of one row draw the places before .. before + m - 1, in
+      // no order; most steps hold every row once, and then the draw is the place
+      int pos = valid ? atomicAdd(&mine[r[u]], 1) : 0;
+      if (__any_sync(0xffffffffu, pos != before))
+        pos = before + __popc(same_row_lanes(r[u]) & below);
+      if (valid) perm_b[pos] = qb + 32 * u + lane;
+      __syncwarp();
+    }
   }
+}
+
+// One group of gw lanes per table row, a lane per column (of V); grid
+// (rows, column tiles, B). V is float or float4; Cv the row width in V.
+template <typename V>
+__global__ void __launch_bounds__(kSumThreads)
+gather_bwd_sum_kernel(const V* __restrict__ g, const int* __restrict__ start,
+                      const int* __restrict__ perm, V* __restrict__ dtab, int N,
+                      int Q, int Cv, int gw) {
+  const int grp = threadIdx.x / gw;
+  const int n = blockIdx.x * (kSumThreads / gw) + grp;
+  const int col = blockIdx.y * gw + (threadIdx.x - grp * gw);
+  const size_t b = blockIdx.z;
+  if (n >= N || col >= Cv) return;
+  const int lo = start[b * (N + 1) + n], hi = start[b * (N + 1) + n + 1];
+  const int* pm = perm + b * Q;
+  const V* gb = g + b * Q * Cv + col;
+  V acc = zero_of(V());
+  int q[kAhead];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) q[u] = lo + u < hi ? pm[lo + u] : 0;
+  for (int s = lo; s < hi; s += kAhead) {
+    V v[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      v[u] = s + u < hi ? gb[static_cast<size_t>(q[u]) * Cv] : zero_of(V());
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int p = s + kAhead + u;
+      q[u] = p < hi ? pm[p] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (s + u < hi) acc = add(acc, v[u]);
+  }
+  dtab[(b * N + n) * Cv + col] = acc;
 }
 
 template <typename I>
@@ -204,14 +305,44 @@ int launch_fwd(const float* table, const I* idx, float* out, int B, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename V>
+cudaError_t launch_sum(const float* g, const int* start, const int* perm,
+                       float* dtab, int B, int N, int Q, int Cv,
+                       cudaStream_t stream) {
+  int gw = 1;
+  while (gw < Cv && gw < 32) gw *= 2;
+  const int rows = kSumThreads / gw;
+  const dim3 grid((N + rows - 1) / rows, (Cv + gw - 1) / gw, B);
+  gather_bwd_sum_kernel<V><<<grid, kSumThreads, 0, stream>>>(
+      reinterpret_cast<const V*>(g), start, perm, reinterpret_cast<V*>(dtab), N,
+      Q, Cv, gw);
+  return cudaGetLastError();
+}
+
 template <typename I>
-int launch_bwd(const float* g, const I* idx, float* dtab, int B, int N, int C,
-               int Q, cudaStream_t stream) {
-  int cw = 1;
-  while (cw < C && cw < kCols) cw *= 2;
-  const dim3 grid((N + kRows - 1) / kRows, (C + kCols - 1) / kCols, B);
-  gather_bwd_kernel<I><<<grid, kBwdThreads, 0, stream>>>(g, idx, dtab, N, C,
-                                                        Q, cw);
+int launch_sort(const I* idx, int* counts, int* start, int* perm, int B, int N,
+                int Q, int G, int W, cudaStream_t stream) {
+  const size_t hist_bytes = sizeof(int) * (static_cast<size_t>(N) + 1);
+  const size_t place_bytes = hist_bytes * (static_cast<size_t>(W) + 2);
+  if (G < 1 || W < 1 || W > 32 || place_bytes > kMaxShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaSuccess;
+  if (hist_bytes > 48 * 1024)
+    rc = cudaFuncSetAttribute(gather_bwd_hist_kernel<I>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(hist_bytes));
+  if (rc == cudaSuccess && place_bytes > 48 * 1024)
+    rc = cudaFuncSetAttribute(gather_bwd_place_kernel<I>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(place_bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int chunk = (Q + G - 1) / G;
+  const dim3 grid(G, B);
+  gather_bwd_hist_kernel<I><<<grid, kHistThreads, hist_bytes, stream>>>(
+      idx, counts, N, Q, chunk);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  gather_bwd_place_kernel<I><<<grid, 32 * W, place_bytes, stream>>>(
+      idx, counts, start, perm, N, Q, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,14 +361,31 @@ extern "C" int arrl_gather_fwd(const float* table, const void* idx, int idx64,
   return launch_fwd(table, static_cast<const int*>(idx), out, B, N, C, Q, s);
 }
 
-// g (B, Q, C) float, idx (B, Q), dtab (B, N, C): every element of dtab is
-// written, so it need not be zeroed. The same limits as the forward's.
-extern "C" int arrl_gather_bwd(const float* g, const void* idx, int idx64,
-                               float* dtab, int B, int N, int C, int Q,
-                               void* stream) {
+// The backward's sort: idx (B, Q) -> start (B, N + 1) and perm (B, Q), with
+// counts (B, G, N + 1) as scratch, all int32 from the caller. G blocks a
+// sample and W warps a block sort the queries; (W + 2) * (N + 1) ints must
+// fit a block's shared memory. Launches two kernels; returns the first error.
+extern "C" int arrl_gather_sort(const void* idx, int idx64, int* counts,
+                                int* start, int* perm, int B, int N, int Q,
+                                int G, int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx64)
-    return launch_bwd(g, static_cast<const long long*>(idx), dtab, B, N, C, Q,
-                      s);
-  return launch_bwd(g, static_cast<const int*>(idx), dtab, B, N, C, Q, s);
+    return launch_sort(static_cast<const long long*>(idx), counts, start, perm,
+                       B, N, Q, G, W, s);
+  return launch_sort(static_cast<const int*>(idx), counts, start, perm, B, N, Q,
+                     G, W, s);
+}
+
+// The backward's sum: g (B, Q, C) float and the sort's start and perm ->
+// dtab (B, N, C); every element of dtab is written, so it need not be
+// zeroed. The same limits as the forward's. One launch.
+extern "C" int arrl_gather_segsum(const float* g, const int* start,
+                                  const int* perm, float* dtab, int B, int N,
+                                  int C, int Q, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = C % 4 == 0 && (reinterpret_cast<size_t>(g) % 16 == 0) &&
+                   (reinterpret_cast<size_t>(dtab) % 16 == 0);
+  return static_cast<int>(
+      vec ? launch_sum<float4>(g, start, perm, dtab, B, N, Q, C / 4, s)
+          : launch_sum<float>(g, start, perm, dtab, B, N, Q, C, s));
 }

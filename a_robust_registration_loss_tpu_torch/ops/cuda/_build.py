@@ -39,7 +39,8 @@ SIGNATURES = {
                     _P, _P, _P, _P, _P, _P],
     "arrl_resample": [_P, _I, _I, _P, _P, _P, _P, _P],
     "arrl_gather_fwd": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
-    "arrl_gather_bwd": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "arrl_gather_sort": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "arrl_gather_segsum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arrl_logistic": [_P, _P, _I, _I, _P],
 }
 

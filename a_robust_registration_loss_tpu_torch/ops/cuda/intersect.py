@@ -17,6 +17,18 @@ w_i = d_i * (1 / sum_j d_j), d_i = sqrt(max(d2_i + 2e-4, 0)), the sum
 started from 0) or the gathered neighbour coordinates (``emit_pts``). No
 gradient flows through stage 1.
 
+The kernel's design (``csrc/intersect.cu``): a block of 4 warps takes 64
+lines and splits the faces into ``SEGMENTS`` = 4 ascending segments, a warp
+per segment, a thread sweeping two lines; the sweep keeps only a count and
+the first kmax hit indices per (line, segment), the block merges them per
+line in segment order (slot k comes from the first segment whose running
+count passes k), and the payload (d2, recon, pts) is formed after the sweep
+from the stored faces. Split so, a small grid (the classical step's 1,250
+warps of lines) still gives every scheduler of the card several short
+tasks. Any number of segments gives the same outputs, and
+``stage1_reference(..., segments=S)`` is the plain version of the split and
+merge.
+
 Every entry takes an optional leading batch axis on all its inputs and
 launches the kernel once per call. The public layout is (..., L, kmax, ...)
 rather than the TPU's lane-major one. Kernel and plain version agree
@@ -49,6 +61,8 @@ OPS_PER_PAIR = 48       # 3 neighbours x 16 fp32 operations, counted in the .cu
 OPS_PER_RECON_SLOT = 33  # 3 x (add, max, sqrt), 2 add, 1 div, 3 mul, 9 x (mul, add)
 LINE_CHUNK = 1024       # lines per step of the plain version
 EMPTY = 2**30           # slot_idx of an empty slot in the intersect_stage1* API
+SEGMENTS = 4            # face segments the kernel splits a cloud into
+STEP_FACES = 256        # faces of all segments the kernel sweeps between two barriers
 
 # kernel launches by instantiation since the last reset (plain runs not counted)
 launches: collections.Counter = collections.Counter()
@@ -94,11 +108,9 @@ def _slot_recon(P, d2):
     return torch.stack(rows, dim=-1)
 
 
-def _stage1_reference(neis, thr2, lines, kmax: int, line_chunk: int,
-                      emit_d2: bool, emit_recon: bool, emit_pts: bool):
+def _sweep_reference(neis, thr2, lines, kmax: int, line_chunk: int):
     """One sample, one cloud: neis (F, 3*nnei), thr2 (F,), lines (L, 6) ->
-    (count (L,), slot_idx (L, kmax) with 0 on empty, d2, recon, pts or None
-    each)."""
+    (count (L,) int32, slot_idx (L, kmax) long with 0 on empty)."""
     F = neis.shape[0]
     nnei = neis.shape[1] // 3
     P = neis.reshape(F, nnei, 3)
@@ -121,8 +133,14 @@ def _stage1_reference(neis, thr2, lines, kmax: int, line_chunk: int,
         buf.scatter_(1, pos, faces.expand(n, F))
         counts.append(label.sum(-1, dtype=torch.int32))
         slots.append(buf[:, :kmax])
-    count = torch.cat(counts)
-    slot_idx = torch.cat(slots)
+    return torch.cat(counts), torch.cat(slots)
+
+
+def _payload_reference(neis, lines, count, slot_idx, kmax: int,
+                       emit_d2: bool, emit_recon: bool, emit_pts: bool):
+    """The sweep's (count, slot_idx) -> (count, slot_idx int32, d2, recon,
+    pts or None each), formed from the stored faces."""
+    nnei = neis.shape[1] // 3
     filled = (torch.arange(kmax, device=neis.device)[None, :]
               < torch.clamp_max(count, kmax)[:, None])
     pts = torch.where(filled[..., None], neis[slot_idx], 0.0).reshape(-1, kmax, nnei, 3)
@@ -134,6 +152,48 @@ def _stage1_reference(neis, thr2, lines, kmax: int, line_chunk: int,
         recon = torch.where(filled[..., None], _slot_recon(pts, d2), 0.0)
     return (count, slot_idx.int(), d2 if emit_d2 else None, recon,
             pts if emit_pts else None)
+
+
+def segment_length(n_faces: int, segments: int) -> int:
+    """Faces per segment when the kernel splits a cloud of n_faces into
+    ``segments``: whole steps of STEP_FACES / segments faces."""
+    step = STEP_FACES // segments
+    return -(-(-(-n_faces // segments)) // step) * step
+
+
+def _split_sweep_reference(neis, thr2, lines, kmax: int, line_chunk: int, segments: int):
+    """The sweep as the kernel makes it with ``segments`` face segments:
+    each segment swept on its own (its count, its first kmax hits), then
+    merged per line in ascending segment order: slot k comes from the first
+    segment whose running count passes k, and the count is the sum."""
+    F, L = neis.shape[0], lines.shape[0]
+    seg_len = segment_length(F, segments)
+    slot = torch.arange(kmax, device=neis.device)[None, :]
+    total = torch.zeros(L, dtype=torch.int32, device=neis.device)
+    merged = torch.zeros((L, kmax), dtype=torch.long, device=neis.device)
+    for s in range(segments):
+        lo, hi = s * seg_len, min(F, (s + 1) * seg_len)
+        if lo >= hi:
+            break
+        count, idx = _sweep_reference(neis[lo:hi], thr2[lo:hi], lines, kmax, line_chunk)
+        k = slot - total[:, None]  # the slot's place in this segment's list
+        here = (k >= 0) & (k < count[:, None])
+        taken = torch.gather(idx, 1, k.clamp(0, kmax - 1)) + lo
+        merged = torch.where(here, taken, merged)
+        total = total + count
+    return total, merged
+
+
+def _stage1_reference(neis, thr2, lines, kmax: int, line_chunk: int,
+                      emit_d2: bool, emit_recon: bool, emit_pts: bool, segments: int = 1):
+    """One sample, one cloud: neis (F, 3*nnei), thr2 (F,), lines (L, 6) ->
+    (count (L,), slot_idx (L, kmax) with 0 on empty, d2, recon, pts or None
+    each)."""
+    if segments == 1:
+        count, slot_idx = _sweep_reference(neis, thr2, lines, kmax, line_chunk)
+    else:
+        count, slot_idx = _split_sweep_reference(neis, thr2, lines, kmax, line_chunk, segments)
+    return _payload_reference(neis, lines, count, slot_idx, kmax, emit_d2, emit_recon, emit_pts)
 
 
 def _check_inputs(neis, lines, deltas, kmax):
@@ -161,15 +221,20 @@ def _check_inputs(neis, lines, deltas, kmax):
 
 def stage1_reference(neis, lines, deltas, kmax: int = KMAX, emit_d2: bool = True,
                      emit_recon: bool = True, emit_pts: bool = False,
-                     line_chunk: int = LINE_CHUNK):
-    """Plain PyTorch version of ``stage1``, same outputs on any device."""
+                     line_chunk: int = LINE_CHUNK, segments: int = 1):
+    """Plain PyTorch version of ``stage1``, same outputs on any device.
+    With ``segments`` > 1 it sweeps every cloud in that many face segments
+    of ``segment_length`` faces and merges them per line by the kernel's
+    rule: the outputs are exactly those of one segment."""
+    if segments < 1:
+        raise ValueError("stage 1: segments must be >= 1")
     batched = lines.dim() == 3
     if not batched:
         neis, deltas, lines = [n[None] for n in neis], [d[None] for d in deltas], lines[None]
     per_sample = []
     for b in range(lines.shape[0]):
         clouds = [_stage1_reference(n[b], thresholds(d[b]), lines[b], kmax, line_chunk,
-                                    emit_d2, emit_recon, emit_pts)
+                                    emit_d2, emit_recon, emit_pts, segments)
                   for n, d in zip(neis, deltas)]
         per_sample.append([None if outs[0] is None else torch.stack(outs)
                            for outs in zip(*clouds)])

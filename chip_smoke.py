@@ -32,7 +32,10 @@ Phases:
    and the resampler at the classical path's width and a ragged shape, and
    stage 1 in every mode combination, one and two clouds, unbatched and
    batched, at config 2's width and a ragged shape, a batched launch equal
-   to B single launches; each with its time (the kernel's device time from
+   to B single launches; stage 1's split of the faces into 4 segments at
+   ragged F, fewer faces than segments, kmax = 1 and a first segment that
+   alone overflows the slots;
+   each with its time (the kernel's device time from
    torch.profiler, the wrapper call's time back to back from CUDA events),
    its plain version's time (CUDA events) and its bounds (the larger of
    bytes over 3.35 TB/s and fp32 operations over the measured rate, and over
@@ -60,8 +63,12 @@ Phases:
    bit for bit, backward equal to the plain version on the CPU bit for bit
    (the kernel sums in ascending q, as a sequential ``index_add_`` does),
    within 1e-6 x sum |g| of the plain version on the card (whose atomics
-   sum in an order of their own), and two launches equal bit for bit; with
-   the times of ``torch.take_along_dim`` and ``index_add_`` beside them;
+   sum in an order of their own), and two launches equal bit for bit; the
+   backward's sort equal to its plain version; the backward's time the sum
+   of its three kernels, with the split, and the times of
+   ``torch.take_along_dim`` and ``index_add_`` beside them; then the
+   backward's edge cases with int32 and int64 indices (one row takes every
+   query, 5 rows do, indices out of range, all of them out of range);
 8. the resampler's batch axis: one launch at B = 4 and 150,000 candidates
    per sample equal to 4 single launches bit for bit;
 9. the kernels on the DCP path's own data, before the paths' long
@@ -85,9 +92,9 @@ Phases:
 Every phase that drives a path sets the launch counters to 0 just before
 and reads them just after. Stage 1 is counted per template instantiation
 (``STAGE1``), so the entries' launches add up to the launches made. Prints
-one JSON object of the kernels on the line before the last, and as its last line ``{"ok": true, "device":
-{...}}``. Any failed check raises and the exit code is not 0. Without a
-CUDA device it exits 1 before any work.
+one JSON object of the kernels on the line before the last, and as its
+last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
+exit code is not 0. Without a CUDA device it exits 1 before any work.
 """
 
 from __future__ import annotations
@@ -114,6 +121,13 @@ B3, N3, F3, L3, BATCHES3 = 4, 1024, 1024, 15000, 8  # the DCP path
 GRAD_ITERS3, PROFILED3 = 10, 5
 GATHER_SHAPES = {"rpm_grouping": (4, 1024, 6, 65536), "wide": (4, 1024, 128, 65536),
                  "ragged": (3, 17, 5, 33)}  # (B, N, C, Q)
+# the backward's edge cases, (B, N, C, Q) each with int32 and int64 indices:
+# every query on one row, 5 of the rows taking every query, a third of the
+# indices out of range, every index out of range; no Q a multiple of a chunk
+GATHER_EDGES = {"one_row": (4, 1024, 6, 65537), "sparse_rows": (3, 2000, 3, 20483),
+                "out_of_range": (2, 64, 5, 4099), "all_dropped": (1, 9, 4, 130)}
+GATHER_BWD_KERNELS = {"hist": "gather_bwd_hist", "place": "gather_bwd_place",
+                      "sum": "gather_bwd_sum"}  # the backward's kernels by part of name
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 PEAK_FP32_OPS = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores (FMA = 2)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes per second
@@ -177,16 +191,18 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(torch, fn, reps, kernel=None):
+def kernel_ms(torch, fn, reps, kernel=None, per_call=1, split=None):
     """Mean device time per call of fn over reps calls, read from
-    torch.profiler: of the kernel whose name holds ``kernel``, or, with no
-    name, of everything fn puts on the device (a library call, whose
-    kernels' names are not ours to know). Back to back, a wrapper's host
-    work can outlast its kernel, and CUDA events around the calls would
-    then time the host. A named kernel must show all of its reps launches:
-    the tracer now and then loses the records of a window's tail, so a
-    window that shows fewer is traced again, and after ``TRACE_TRIES``
-    windows the check fails."""
+    torch.profiler: of the ``per_call`` kernels a call launches once each
+    whose names hold ``kernel`` (their times added), or, with no name, of
+    everything fn puts on the device (a library call, whose kernels' names
+    are not ours to know). Back to back, a wrapper's host work can outlast
+    its kernel, and CUDA events around the calls would then time the host.
+    Each named kernel must show all of its reps launches: the tracer now and
+    then loses the records of a window's tail, so a window that shows fewer
+    is traced again, and after ``TRACE_TRIES`` windows the check fails.
+    ``split``, a dict of {key: part of a kernel's name}, is filled with each
+    part's mean ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -197,18 +213,26 @@ def kernel_ms(torch, fn, reps, kernel=None):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name)]
-        if kernel is None or len(times) == reps:
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name):
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        seen = sum(map(len, by_name.values()))
+        whole = len(by_name) == per_call and all(len(us) == reps for us in by_name.values())
+        if kernel is None or whole:
             break
-        print(f"{kernel}: the profiler saw {len(times)} of {reps} launches; tracing again",
+        print(f"{kernel}: the profiler saw {seen} of {reps * per_call} launches; tracing again",
               flush=True)
     if kernel is None:
-        check(times, "the profiler saw no device activity of the library call")
+        check(by_name, "the profiler saw no device activity of the library call")
     else:
-        check(len(times) == reps, f"{kernel}: the profiler saw {len(times)} of {reps} "
-              f"launches in each of {TRACE_TRIES} windows")
-    return sum(times) / reps / 1e3
+        check(whole, f"{kernel}: the profiler saw {seen} of {reps * per_call} launches of "
+              f"{per_call} kernels in each of {TRACE_TRIES} windows")
+    ms = {name: sum(us) / reps / 1e3 for name, us in by_name.items()}
+    if split is not None:
+        for key, part in list(split.items()):
+            split[key] = sum(t for name, t in ms.items() if part in name)
+    return sum(ms.values())
 
 
 def bounds(ops, nbytes, rate):
@@ -245,12 +269,14 @@ def counts(IK, RS, PB, reset=False):
         IK.launches.clear()
         RS.launches.clear()
         PB.launches = 0
-        GK.launches.update(fwd=0, bwd=0)
+        GK.launches.update(fwd=0, bwd_sort=0, bwd_sum=0)
     out = {name: IK.launches[IK.instantiation(*key)] for name, key in STAGE1.items()}
     out["stage1_other"] = sum(IK.launches.values()) - sum(out.values())
     out.update(resample_sample_and_hit=RS.launches["single"],
                resample_batched=RS.launches["batched"], probe_fp32_rate=PB.launches,
-               gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd"])
+               gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd_sum"])
+    check(GK.launches["bwd_sort"] == GK.launches["bwd_sum"],
+          f"the gather's backward sorted and summed unequally often: {GK.launches}")
     return out
 
 
@@ -394,6 +420,50 @@ def stage1_modes_phase(torch, M, IK, n1, n2, lines, rate):
         print(f"{name} at config 2 ({out[name]['shape']}): kernel {ms:.4f} ms, "
               f"call {call_ms:.4f} ms, plain {plain:.3f} ms", flush=True)
     return out
+
+
+def dense_first_faces(torch, neis, lines, copies=6):
+    """Make the first ``copies`` faces of every sample one equilateral
+    triangle of side 0.2 and send every line through its centroid: each line
+    then hits all of them, whatever its direction (the vertices lie 0.115
+    from the centroid, under the threshold 0.8655 * 0.2)."""
+    c = torch.tensor([0.3, -0.2, 0.6], device=neis.device)
+    tri = c + 0.2 / 3**0.5 * torch.tensor([[1.0, 0.0, 0.0], [-0.5, 0.75**0.5, 0.0],
+                                           [-0.5, -(0.75**0.5), 0.0]], device=neis.device)
+    neis, lines = neis.clone(), lines.clone()
+    neis[..., :copies, :] = tri.reshape(9)
+    lines[..., 3:] = c
+    return neis, lines
+
+
+def stage1_segments_phase(torch, M, IK, n1, n2, lines):
+    """Stage 1's split of the faces into segments and their merge, on one
+    sample and on all 32 samples of config 2's lines, every mode on,
+    against the plain version bit for bit: ragged F (no multiple of a step
+    or of the segments), fewer faces than segments, kmax = 1, and a first
+    segment that alone holds more than kmax hits of every line."""
+    B = lines.shape[0]
+    for a, b, ls in ((n1[0], n2[0], lines[0, :257]), (n1, n2, lines)):
+        a, b = a[..., :333, :], b[..., :301, :]
+        nb = B if ls.dim() == 3 else 1
+        dense, through = dense_first_faces(torch, a, ls)
+        cases = {"ragged": (a, b, ls, 4), "kmax=1": (a, b, ls, 1),
+                 "fewer faces than segments": (a[..., :3, :], b[..., :2, :], ls, 4),
+                 "dense first segment": (dense, b, through, 4)}
+        for name, (x, y, l6, kmax) in cases.items():
+            deltas = (M.neighborhood_delta(x), M.neighborhood_delta(y))
+            kw = dict(emit_d2=True, emit_recon=True, emit_pts=True)
+            got = IK.stage1((x, y), l6, deltas, kmax, **kw)
+            ref = IK.stage1_reference((x, y), l6, deltas, kmax, **kw)
+            for g, r, what in zip(got, ref, ("count", "slot_idx", "d2", "recon", "slot_pts")):
+                check(torch.equal(g, r),
+                      f"stage1 B={nb} {name}: {what} differs from the plain version")
+            if name == "dense first segment":
+                least = int(ref[0].select(-2, 0).min())
+                check(least > kmax, f"stage1 B={nb} {name}: a line has only {least} hits")
+            print(f"stage1 segments B={nb} {name}: F=({x.shape[-2]}, {y.shape[-2]}) "
+                  f"L={l6.shape[-2]} kmax={kmax} hits={int(ref[0].sum())} max count="
+                  f"{int(ref[0].max())}: every output equals the plain version", flush=True)
 
 
 def resample_phase(torch, G, RS, data, gen, rate):
@@ -688,7 +758,8 @@ GATHER_SRC = "a_robust_registration_loss_tpu_torch/csrc/gather.cu"
 
 def gather_check(torch, GK, table, idx, g, what):
     """Forward and backward kernels on (table, idx, g) against their plain
-    versions: forward bit for bit; backward equal to the plain version on
+    versions: forward bit for bit; the backward's sort equal to its plain
+    version; backward equal to the plain version on
     the CPU bit for bit, within 1e-6 x sum_q |g| of the plain version on
     the card, two launches and the autograd path equal bit for bit.
     Returns the largest |kernel - plain on the card| of the forward and of
@@ -703,8 +774,14 @@ def gather_check(torch, GK, table, idx, g, what):
               f"gather {what}: forward differs from take_along_dim")
     else:
         check(bool((out[~inside] == 0).all()), f"gather {what}: an out-of-range row is not zero")
+    start, perm = GK.sort_by_row(idx, N)
+    want_start, want_perm = GK.sort_by_row_reference(idx, N)
+    check(torch.equal(start, want_start) and torch.equal(perm, want_perm),
+          f"gather {what}: the backward's sort differs from the plain version")
     d1, d2 = GK.gather_rows_bwd(g, idx, N), GK.gather_rows_bwd(g, idx, N)
     check(torch.equal(d1, d2), f"gather {what}: two backward launches differ")
+    check(torch.equal(d1, GK.segmented_sum(g, start, perm)),
+          f"gather {what}: the backward differs from its sum on the checked sort")
     ref_cpu = GK.gather_rows_bwd_reference(g.cpu(), idx.cpu(), N)
     check(torch.equal(d1.cpu(), ref_cpu),
           f"gather {what}: backward differs from the plain version on the CPU")
@@ -719,11 +796,13 @@ def gather_check(torch, GK, table, idx, g, what):
 
 
 def gather_times(torch, GK, table, idx, g):
-    """Times and bounds of both kernels on these inputs: {"fwd": fields,
-    "bwd": fields}. The bound is bytes: values and indices read once, the
-    result written once. The backward's library call is ``index_add_`` alone,
-    onto a buffer zeroed once before the timed calls (the kernel writes
-    every element and needs no memset)."""
+    """Times and bounds of both directions on these inputs: {"fwd": fields,
+    "bwd": fields}. The backward's time is the device time of all of its
+    kernels together, with the split by kernel beside it. The bound is
+    bytes: values and indices read once, the result written once. The
+    backward's library call is ``index_add_`` alone, onto a buffer zeroed
+    once before the timed calls (the kernels write every element and need
+    no memset)."""
     (B, N, C), Q = table.shape, idx.shape[1]
     nbytes = 4 * (B * N * C + B * Q * C) + idx.element_size() * B * Q
     flat = (idx.long() + torch.arange(B, device=idx.device)[:, None] * N).reshape(-1)
@@ -733,17 +812,28 @@ def gather_times(torch, GK, table, idx, g):
         "fwd": (lambda: GK.gather_rows_fwd(table, idx), "gather_fwd_kernel",
                 lambda: GK.gather_rows_reference(table, idx),
                 lambda: torch.take_along_dim(table, long_idx, 1)),
-        "bwd": (lambda: GK.gather_rows_bwd(g, idx, N), "gather_bwd_kernel",
+        "bwd": (lambda: GK.gather_rows_bwd(g, idx, N), "gather_bwd_",
                 lambda: GK.gather_rows_bwd_reference(g, idx, N),
                 lambda: into.index_add_(0, flat, g.reshape(B * Q, C))),
     }
     out = {}
     for name, (call, kernel, plain, library) in calls.items():
-        out[name] = dict(ms=kernel_ms(torch, call, 20, kernel), call_ms=cuda_ms(torch, call, 20),
+        split = dict(GATHER_BWD_KERNELS) if name == "bwd" else None
+        ms = kernel_ms(torch, call, 20, kernel, per_call=len(split) if split else 1, split=split)
+        out[name] = dict(ms=ms, call_ms=cuda_ms(torch, call, 20),
                          plain_ms=cuda_ms(torch, plain, 5, warmup=1),
                          library_ms=kernel_ms(torch, library, 20), ops=0, nbytes=nbytes,
                          shape=f"B={B} N={N} C={C} Q={Q} idx {str(idx.dtype)[6:]}")
+        if split:
+            out[name].update(kernels_per_call=len(split), ms_by_kernel=split)
     return out
+
+
+def split_text(m):
+    """' (hist a + place b + sum c)' of a backward's fields, '' of a forward's."""
+    if "ms_by_kernel" not in m:
+        return ""
+    return " (" + " + ".join(f"{k} {v:.4f}" for k, v in m["ms_by_kernel"].items()) + ")"
 
 
 def gather_phase(torch, GK, rate):
@@ -771,10 +861,29 @@ def gather_phase(torch, GK, rate):
             times[name]["fwd"]["err"], times[name]["bwd"]["err"] = ef, eb
             for k, m in times[name].items():
                 (_, _), (db, _) = bounds(0, m["nbytes"], rate)
-                print(f"  gather_{k} {m['shape']}: kernel {m['ms']:.4f} ms, call "
+                print(f"  gather_{k} {m['shape']}: kernel {m['ms']:.4f} ms{split_text(m)}, call "
                       f"{m['call_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, library call "
                       f"{m['library_ms']:.4f} ms, bound {db:.5f} ms by bytes "
                       f"({db / m['ms']:.1%} of it reached)", flush=True)
+    for name, (B, N, C, Q) in GATHER_EDGES.items():
+        table = torch.randn((B, N, C), generator=gen, device=DEV)
+        g = torch.randn((B, Q, C), generator=gen, device=DEV)
+        if name == "one_row":
+            idx = torch.full((B, Q), N // 3, device=DEV, dtype=torch.int32)
+        elif name == "sparse_rows":
+            rows = torch.tensor([3, 700, 701, 1500, N - 1], device=DEV, dtype=torch.int32)
+            idx = rows[torch.randint(0, 5, (B, Q), generator=gen, device=DEV)]
+        elif name == "out_of_range":
+            idx = torch.randint(-N // 4, N + N // 4, (B, Q), generator=gen, device=DEV,
+                                dtype=torch.int32)
+        else:
+            idx = torch.where(torch.rand((B, Q), generator=gen, device=DEV) < 0.5, -1, N).int()
+        empty = 1 - torch.unique(idx[(idx >= 0) & (idx < N)]).numel() / N
+        for ix in (idx, idx.long()):
+            gather_check(torch, GK, table, ix, g, f"{name} {str(ix.dtype)[6:]}")
+        print(f"gather edge case {name} (B={B} N={N} C={C} Q={Q}, {empty:.1%} of the rows "
+              "without a query, int32 and int64): sort, forward and backward equal their "
+              "plain versions", flush=True)
     return times
 
 
@@ -992,6 +1101,7 @@ def dcp_kernels_phase(torch, mods, cfg, model, batch, rate):
     (d_table,) = torch.autograd.grad(got, table, up)
     gather_launches = counts(IK, RS, PB)
     check_counts(gather_launches, {"gather_fwd": 1, "gather_bwd": 1}, 1, "graph gather")
+    check(GK.BWD_KERNELS == len(GATHER_BWD_KERNELS), "the backward's kernels are not those timed")
     check(torch.equal(got.detach(), edge[..., :3].reshape(B3, N3 * k, 3)),
           "gather_rows on the graph's indices differs from the features the model gathered")
     check(torch.equal(d_table.cpu(), GK.gather_rows_bwd_reference(up.cpu(), idx.cpu(), N3)),
@@ -1120,6 +1230,7 @@ def main():
     resample = resample_phase(torch, G, RS, data, gen, rate)
     src2, n1, n2, lines2 = batch_data(torch, G, LS)
     modes = stage1_modes_phase(torch, M, IK, n1, n2, lines2, rate)
+    stage1_segments_phase(torch, M, IK, n1, n2, lines2)
     gather = gather_phase(torch, GK, rate)
     t0 = time.perf_counter()
     batches3 = dcp_batches(torch, G)
@@ -1139,14 +1250,15 @@ def main():
             resample, resample_batched, probe]
     p2 = modes["stage1_pair_pts"]
     (mb, _), (db, _) = bounds(p2["ops"], p2["nbytes"], rate)
-    pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"], config2_call_ms=p2["call_ms"],
-               config2_plain_ms=p2["plain_ms"], config2_bound_ms=db,
+    pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"],
+               config2_call_ms=p2["call_ms"], config2_plain_ms=p2["plain_ms"], config2_bound_ms=db,
                config2_bound_ms_measured_rate=mb,
                max_abs_err=max(pts["max_abs_err"], p2["err"]))
     p3 = dcp["stage1"]
     (mb, _), (db, _) = bounds(p3["ops"], p3["nbytes"], rate)
-    pts.update(dcp_shape=p3["shape"], dcp_ms=p3["ms"], dcp_call_ms=p3["call_ms"],
-               dcp_plain_ms=p3["plain_ms"], dcp_bound_ms=db, dcp_bound_ms_measured_rate=mb,
+    pts.update(dcp_shape=p3["shape"], dcp_ms=p3["ms"],
+               dcp_call_ms=p3["call_ms"], dcp_plain_ms=p3["plain_ms"], dcp_bound_ms=db,
+               dcp_bound_ms_measured_rate=mb,
                max_abs_err=max(pts["max_abs_err"], p3["err"]))
     print(f"stage1_pair_pts at the DCP path's shape ({p3['shape']}): kernel {p3['ms']:.4f} ms, "
           f"call {p3['call_ms']:.4f} ms, plain {p3['plain_ms']:.3f} ms, bound {mb:.5f} ms at "
@@ -1168,7 +1280,13 @@ def main():
                         bound_ms=bounds(0, t[name]["nbytes"], rate)[1][0], bound_by="bytes")
             for shape, t in gather.items()}
         kernels.append(e)
-        print(f"{e['name']} on DCP's graph ({e['shape']}): kernel {e['ms']:.4f} ms, call "
+        for key in ("kernels_per_call", "ms_by_kernel"):
+            if key in m:
+                e[key] = m[key]
+                for shape, t in gather.items():
+                    e["by_shape"][shape][key] = t[name][key]
+        print(f"{e['name']} on DCP's graph ({e['shape']}): kernel {e['ms']:.4f} "
+              f"ms{split_text(m)}, call "
               f"{e['call_ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library call "
               f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms by bytes "
               f"({e['bound_ms'] / e['ms']:.1%} of it reached)", flush=True)

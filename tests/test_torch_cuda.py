@@ -19,7 +19,12 @@ the CPU; a batched resampler launch equal to B single launches bit for bit;
 the row gather's forward equal to its plain version bit for bit, its
 backward equal to the plain version on the CPU bit for bit (both sum in
 ascending q), within 1e-6 x sum |g| of the plain version on the card
-(atomics, in an order of their own) and equal between two launches; DCP's
+(atomics, in an order of their own) and equal between two launches, the
+backward's sort equal to its plain version exactly, all of it also with
+every query on one row, most rows empty, indices out of range and Q no
+multiple of any chunk; stage 1's split into face segments exact at ragged F
+and L, F below the segment count, kmax = 1 and a line whose first segment
+alone holds more than kmax hits; DCP's
 evaluation on the card with one resampler and one stage-1 launch per batch
 and the CPU path's R_ab and t_ab within 1e-4.
 """
@@ -235,6 +240,61 @@ def test_stage1_batch_equals_single_launches(cuda_device):
             assert torch.equal(x[b], y)
 
 
+def _dense_first_faces(neis, lines, copies=6):
+    """Make the first ``copies`` faces one equilateral triangle of side 0.2
+    and send every line through its centroid: each line then hits all of
+    them, whatever its direction (its vertices lie 0.115 from the centroid,
+    under the threshold 0.8655 * 0.2)."""
+    c = torch.tensor([0.3, -0.2, 0.6])
+    tri = c + 0.2 / 3**0.5 * torch.tensor([[1.0, 0.0, 0.0], [-0.5, 0.75**0.5, 0.0],
+                                           [-0.5, -(0.75**0.5), 0.0]])
+    neis, lines = neis.clone(), lines.clone()
+    neis[..., :copies, :] = tri.reshape(9)
+    lines[..., 3:] = c
+    return neis, lines
+
+
+# (batch, F1, F2, L, kmax, dense)
+STAGE1_SEGMENT_CASES = {
+    "ragged": (None, 333, 301, 257, 4, False),
+    "kmax1": (None, 333, 301, 257, 1, False),
+    "few-faces": (None, 3, 2, 100, 4, False),
+    "dense-first-segment": (None, 333, 301, 257, 4, True),
+    "one-line": (None, 70, 65, 1, 4, False),
+    "batched": (16, 150, 131, 8500, 4, False),
+    "batched-dense-first-segment": (16, 150, 131, 8500, 2, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STAGE1_SEGMENT_CASES))
+def test_stage1_segments_match_plain(cuda_device, case):
+    """The kernel's split of the faces into segments and their merge give
+    the plain version's outputs bit for bit, every mode on, one launch."""
+    B, f1, f2, L, kmax, dense = STAGE1_SEGMENT_CASES[case]
+    n1, n2, lines = _problem(max(f1, 3), max(f2, 3), min(L, 2000))
+    n1, n2 = n1[:f1], n2[:f2]
+    lines = lines[torch.arange(L) % lines.shape[0]]
+    if B:
+        shift = 0.01 * torch.arange(B)[:, None, None]
+        origins = lines[None, :, 3:] + shift  # the samples differ; directions stay unit
+        lines = torch.cat([lines[None, :, :3].expand(B, L, 3), origins], -1)
+        n1, n2 = n1[None] + shift, n2[None] + shift
+    if dense:
+        n1, lines = _dense_first_faces(n1, lines)
+    n1, n2, lines = (x.to(cuda_device) for x in (n1, n2, lines))
+    deltas = (M.neighborhood_delta(n1), M.neighborhood_delta(n2))
+    kw = dict(emit_d2=True, emit_recon=True, emit_pts=True)
+    before = sum(IK.launches.values())
+    got = IK.stage1((n1, n2), lines, deltas, kmax, **kw)
+    assert sum(IK.launches.values()) == before + 1
+    ref = IK.stage1_reference((n1, n2), lines, deltas, kmax, **kw)
+    if dense:  # cloud 0's first faces alone overflow the slots of every line
+        assert int(ref[0].select(-2, 0).min()) > kmax
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [0, 2, 5])
 def test_probe_matches_plain(cuda_device, iters):
@@ -316,7 +376,7 @@ def test_gather_kernels_match_plain(cuda_device, shape, dtype):
     leaf = table.clone().requires_grad_(True)
     out = GK.gather_rows(leaf, idx)
     (grad,) = torch.autograd.grad(out, leaf, up)
-    assert GK.launches == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert GK.launches == {k: n + 1 for k, n in before.items()}  # forward, sort, sum
     assert torch.equal(out.detach(), GK.gather_rows_reference(table, idx))
     bad = (idx < 0) | (idx >= N)
     assert bool(bad.any()) and bool((out.detach()[bad] == 0).all())
@@ -328,6 +388,64 @@ def test_gather_kernels_match_plain(cuda_device, shape, dtype):
     inside = idx.clamp(0, N - 1)
     assert torch.equal(GK.gather_rows_fwd(table, inside),
                        torch.take_along_dim(table, inside.long()[..., None], 1))
+
+
+def _gather_edge_case(case, dtype):
+    """(g, idx, N) on the CPU for the backward's edge cases."""
+    gen = torch.Generator().manual_seed(3)
+    B, N, C, Q = {"one-row": (2, 300, 6, 5001), "sparse-rows": (3, 2000, 3, 777),
+                  "out-of-range": (2, 64, 5, 4099), "all-dropped": (1, 9, 4, 130),
+                  "wide": (2, 1024, 128, 3001), "one-query": (2, 7, 3, 1)}[case]
+    g = torch.randn((B, Q, C), generator=gen)
+    if case == "one-row":
+        idx = torch.full((B, Q), 123, dtype=dtype)
+    elif case == "sparse-rows":  # 5 of the 2,000 rows take every query
+        idx = torch.tensor([3, 700, 701, 1500, 1999])[torch.randint(0, 5, (B, Q), generator=gen)]
+    elif case == "out-of-range":
+        idx = torch.randint(-40, N + 40, (B, Q), generator=gen)
+    elif case == "all-dropped":
+        idx = torch.where(torch.rand((B, Q), generator=gen) < 0.5, -1, N)
+    else:
+        idx = torch.randint(0, N, (B, Q), generator=gen)
+    return g, idx.to(dtype), N
+
+
+GATHER_EDGE_CASES = ["one-row", "sparse-rows", "out-of-range", "all-dropped", "wide", "one-query"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("case", GATHER_EDGE_CASES)
+def test_gather_backward_edge_cases(cuda_device, case, dtype):
+    """The sort equals its plain version exactly, the sum and the whole
+    backward equal the CPU's plain version bit for bit, twice."""
+    g, idx, N = _gather_edge_case(case, dtype)
+    before = dict(GK.launches)
+    start, perm = GK.sort_by_row(idx.to(cuda_device), N)
+    want_start, want_perm = GK.sort_by_row_reference(idx, N)
+    assert torch.equal(start.cpu(), want_start) and torch.equal(perm.cpu(), want_perm)
+    want = GK.gather_rows_bwd_reference(g, idx, N)
+    assert torch.equal(GK.segmented_sum(g.to(cuda_device), start, perm).cpu(), want)
+    assert GK.launches == {"fwd": before["fwd"], "bwd_sort": before["bwd_sort"] + 1,
+                           "bwd_sum": before["bwd_sum"] + 1}
+    for _ in range(2):
+        got = GK.gather_rows_bwd(g.to(cuda_device), idx.to(cuda_device), N)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gather_backward_takes_many_rows_or_raises(cuda_device):
+    """A table of 12,000 rows leaves the sort 2 warps a block and still
+    sorts; one of 60,000 rows is refused."""
+    gen = torch.Generator().manual_seed(5)
+    N, Q = 12_000, 20_000
+    assert GK._sort_plan(N, Q)[1] == 2
+    g = torch.randn((1, Q, 3), generator=gen)
+    idx = torch.randint(-5, N + 5, (1, Q), generator=gen)
+    got = GK.gather_rows_bwd(g.to(cuda_device), idx.to(cuda_device), N)
+    assert torch.equal(got.cpu(), GK.gather_rows_bwd_reference(g, idx, N))
+    with pytest.raises(ValueError, match="table rows"):
+        GK.gather_rows_bwd(g.to(cuda_device), idx.to(cuda_device), 60_000)
 
 
 @pytest.mark.cuda

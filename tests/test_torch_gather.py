@@ -7,7 +7,14 @@ within rtol 1e-5 / atol 1e-5, the JAX package's own bar for its kernel
 against ``take_along_axis`` (the two sum in different orders); the plain
 forward equals ``torch.take_along_dim`` bit for bit for in-range idx, and
 the plain backward equals a sequential loop in ascending q bit for bit,
-which is the order the CUDA kernel promises.
+which is the order the CUDA kernels promise. The backward's two stages as
+the kernels make them, ``sort_by_row_reference`` then
+``segmented_sum_reference``, equal the plain backward bit for bit on every
+edge case (all queries on one row, most rows empty, indices out of range,
+every index out of range, int32 and int64, Q of any length), and the JAX
+``gather_rows`` gradient per element within 1e-6 times the sum of |g| over
+the queries it adds (the one-hot contraction sums a row's queries in another
+order), the bar the card's kernels are held to against ``index_add_``.
 """
 
 import numpy as np
@@ -92,3 +99,79 @@ def test_wrapper_refuses_what_the_kernels_cannot_take():
         GK.gather_rows(t(tab), t(idx).float())
     with pytest.raises(ValueError):
         GK.gather_rows(t(tab), t(idx)[:1])
+
+
+EDGE_CASES = ["one-row", "sparse-rows", "out-of-range", "all-dropped", "one-query", "odd-length"]
+
+
+def _edge_case(case, dtype):
+    """(g, idx, N) as numpy arrays for the backward's edge cases."""
+    rng = np.random.default_rng(5)
+    B, N, C, Q = {"one-row": (2, 40, 6, 301), "sparse-rows": (3, 200, 3, 157),
+                  "out-of-range": (2, 24, 5, 133), "all-dropped": (1, 9, 4, 70),
+                  "one-query": (2, 7, 3, 1), "odd-length": (2, 33, 6, 129)}[case]
+    if case == "one-row":
+        idx = np.full((B, Q), 17)
+    elif case == "sparse-rows":  # 4 of the 200 rows take every query
+        idx = np.array([3, 70, 71, 199])[rng.integers(0, 4, (B, Q))]
+    elif case == "out-of-range":
+        idx = rng.integers(-12, N + 12, (B, Q))
+    elif case == "all-dropped":
+        idx = np.where(rng.random((B, Q)) < 0.5, -1, N)
+    else:
+        idx = rng.integers(0, N, (B, Q))
+    return rng.standard_normal((B, Q, C)).astype(np.float32), idx.astype(dtype), N
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_sort_then_segmented_sum_is_the_backward(case, dtype):
+    g, idx, N = _edge_case(case, dtype)
+    start, perm = GK.sort_by_row_reference(t(idx), N)
+    assert start.dtype == perm.dtype == torch.int32
+    assert start.shape == (idx.shape[0], N + 1) and perm.shape == idx.shape
+    for b in range(idx.shape[0]):
+        row = np.where((idx[b] >= 0) & (idx[b] < N), idx[b], N)
+        # a stable sort by row: the queries of each row ascending, dropped ones last
+        want = np.argsort(row, kind="stable")
+        np.testing.assert_array_equal(perm[b].numpy(), want)
+        np.testing.assert_array_equal(start[b].numpy(),
+                                      np.searchsorted(row[want], np.arange(N + 1)))
+    got = GK.segmented_sum_reference(t(g), start, perm)
+    want = GK.gather_rows_bwd_reference(t(g), t(idx), N)
+    assert torch.equal(got, want)
+    assert torch.equal(GK.segmented_sum(t(g), *GK.sort_by_row(t(idx), N)), want)
+    assert torch.equal(GK.gather_rows_bwd(t(g), t(idx), N), want)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_case_backward_matches_jax_gradient(case):
+    g, idx, N = _edge_case(case, np.int32)
+    tab = np.zeros((idx.shape[0], N, g.shape[2]), np.float32)
+    gwant = jax.grad(lambda x: jnp.sum(jax_gather_rows(x, jnp.asarray(idx), True)
+                                       * jnp.asarray(g)))(jnp.asarray(tab))
+    got = GK.segmented_sum_reference(t(g), *GK.sort_by_row_reference(t(idx), N))
+    # per element within 1e-6 x the sum of |g| over the queries it adds
+    bar = 1e-6 * GK.gather_rows_bwd_reference(t(np.abs(g)), t(idx), N).numpy()
+    assert (np.abs(got.numpy() - np.asarray(gwant)) <= bar).all()
+
+
+@pytest.mark.parametrize("n_rows,n_queries,want", [
+    (1024, 65536, (16, 16)), (1024, 20480, (16, 16)), (1024, 5000, (5, 16)), (17, 33, (1, 16)),
+    (1024, 0, (1, 16)), (12000, 20000, (16, 2)), (19000, 100, (2, 1))])
+def test_sort_plan(n_rows, n_queries, want):
+    """The sort's blocks per sample and warps per block follow from the
+    shape: the counters of all warps fit a block's shared memory."""
+    G, W = GK._sort_plan(n_rows, n_queries)
+    assert (G, W) == want
+    assert (W + 2) * (n_rows + 1) * 4 + 256 <= 227 * 1024
+
+
+def test_sort_refuses_more_rows_than_its_counters_hold():
+    with pytest.raises(ValueError, match="table rows"):
+        GK._sort_plan(60_000, 100)
+    with pytest.raises(ValueError):
+        GK.sort_by_row(torch.zeros((2, 5)), 8)  # float indices
+    with pytest.raises(ValueError):
+        GK.segmented_sum(torch.zeros((2, 5, 3)), torch.zeros((2, 9), dtype=torch.int64),
+                         torch.zeros((2, 5), dtype=torch.int32))

@@ -10,7 +10,10 @@ multiply-adds into FMAs and the port rounds every operation on its own, so
 d2 = |p - x0|^2 - proj^2, a difference of two numbers near 16 here, carries
 a few ulps of |p - x0|^2 on either side (both within 3.3e-6 of the float64
 value; the largest port-JAX difference seen over five seeds was 4.9e-7 times
-|p - x0|^2, 3.2e-6 absolute). The recon weights d_i = sqrt(d2_i + 2e-4)
+|p - x0|^2, 3.2e-6 absolute). The split and merge the CUDA kernel makes
+(``stage1_reference(..., segments=S)``: S face segments swept on their own,
+merged per line in segment order) equals the unsplit plain version exactly,
+for S in {1, 2, 4, 7} and every mode. The recon weights d_i = sqrt(d2_i + 2e-4)
 magnify that to at most 4.9e-5 absolute seen (a d2 change of 3e-6 moves a
 weight by up to 7.5e-3 relative, times the neighbourhood spread). The
 port's recon arithmetic applied to JAX's own slot_d2 gives JAX's slot_recon
@@ -18,6 +21,8 @@ within 1.2e-7. A batched call equals B single calls bit for bit.
 """
 
 import itertools
+import os
+import re
 
 import numpy as np
 import pytest
@@ -168,3 +173,83 @@ def test_recon_mode_takes_the_reciprocal():
     np.testing.assert_array_equal(got, want)
     glue = ((d / d.sum(-1, keepdims=True))[..., None] * P).sum(-2)
     np.testing.assert_allclose(got, glue, rtol=0, atol=1e-6)
+
+
+def _dense_first_faces(neis, lines, copies=6):
+    """The first ``copies`` faces become one equilateral triangle of side
+    0.2 and every line passes through its centroid, so every line hits all
+    of them: the first segment alone overflows kmax slots."""
+    c = np.array([0.3, -0.2, 0.6], np.float32)
+    tri = c + np.float32(0.2 / 3**0.5) * np.array(
+        [[1.0, 0.0, 0.0], [-0.5, 0.75**0.5, 0.0], [-0.5, -(0.75**0.5), 0.0]], np.float32)
+    neis, lines = neis.copy(), lines.copy()
+    neis[:copies] = tri.reshape(9)
+    lines[:, 3:] = c
+    return neis, lines
+
+
+def _assert_split_equals_unsplit(neis, lines, segments, kmax, flags):
+    neis = [t(n) for n in neis]
+    deltas = [M.neighborhood_delta(n) for n in neis]
+    kw = dict(emit_d2=flags[0], emit_recon=flags[1], emit_pts=flags[2])
+    ref = IK.stage1_reference(neis, t(lines), deltas, kmax, **kw)
+    got = IK.stage1_reference(neis, t(lines), deltas, kmax, segments=segments, **kw)
+    for name, on, g, r in zip(NAMES, (True, True, *flags), got, ref):
+        assert (g is None) == (not on) == (r is None), name
+        if on:
+            assert torch.equal(g, r), name
+    return ref
+
+
+@pytest.mark.parametrize("segments", [1, 2, 4, 7])
+@pytest.mark.parametrize("flags", MODES, ids=lambda f: "d2%d-recon%d-pts%d" % f)
+def test_segment_merge_equals_unsplit(ragged, segments, flags):
+    neis1, neis2, lines = ragged
+    ref = _assert_split_equals_unsplit((neis1, neis2), lines, segments, IK.KMAX, flags)
+    assert int(ref[0].sum()) > 50 and int(ref[0].max()) > IK.KMAX  # slots overflow too
+
+
+@pytest.mark.parametrize("segments", [1, 2, 4, 7])
+@pytest.mark.parametrize("case", ["kmax1", "few-faces", "dense-first-segment", "one-cloud"])
+def test_segment_merge_edge_cases(ragged, segments, case):
+    neis1, neis2, lines = ragged
+    kmax, neis = IK.KMAX, (neis1, neis2)
+    if case == "kmax1":
+        kmax = 1
+    elif case == "few-faces":  # fewer faces than segments: some segments are empty
+        neis = (neis1[:3], neis2[:2])
+    elif case == "dense-first-segment":
+        dense, lines = _dense_first_faces(neis1, lines)
+        neis = (dense, neis2)
+    else:
+        neis = (neis1,)
+    ref = _assert_split_equals_unsplit(neis, lines, segments, kmax, (True, True, True))
+    if case == "dense-first-segment":
+        assert IK.segment_length(neis1.shape[0], segments) >= 6
+        assert int(ref[0][0].min()) > kmax
+
+
+@pytest.mark.parametrize("n_faces,segments,want", [
+    (2048, 4, 512), (2048, 1, 2048), (1024, 2, 512), (333, 4, 128), (333, 2, 256),
+    (333, 1, 512), (3, 4, 64), (0, 4, 0), (1000, 4, 256)])
+def test_segment_length_is_whole_steps(n_faces, segments, want):
+    """Segments are whole steps of STEP_FACES / S faces and cover the cloud."""
+    n = IK.segment_length(n_faces, segments)
+    assert n == want and n % (IK.STEP_FACES // segments) == 0 and n * segments >= n_faces
+
+
+def test_segment_constants_mirror_the_kernel_source():
+    """SEGMENTS and STEP_FACES are the kernel's: a warp of the block's
+    kThreads per segment, kStepFaces faces a step."""
+    with open(os.path.join(os.path.dirname(IK.__file__), "..", "..", "csrc", "intersect.cu")) as f:
+        src = f.read()
+    const = {k: v for k, v in re.findall(r"constexpr int (\w+) = ([^;]+);", src)}
+    assert const["kSegments"] == "kWarps" and const["kWarps"] == "kThreads / 32"
+    assert int(const["kThreads"]) // 32 == IK.SEGMENTS
+    assert int(const["kStepFaces"]) == IK.STEP_FACES
+
+
+def test_reference_refuses_no_segments(ragged):
+    neis1, _, lines = ragged
+    with pytest.raises(ValueError):
+        IK.stage1_reference((t(neis1),), t(lines), (M.neighborhood_delta(t(neis1)),), segments=0)
