@@ -10,11 +10,28 @@
 // What is kept is the one-hot's semantics: a row whose idx is < 0 or >= N
 // comes out as zeros and its gradient is dropped.
 //
-// Forward: one thread per output vector (a float, or a float4 where C is a
-// multiple of 4 and the pointers are 16-byte aligned), grid y over the
-// batch. Threads of a warp write neighbouring addresses and read
-// neighbouring addresses within a table row; the table is small and stays
-// in L2. Bound: bytes (table and idx read once, out written once).
+// Forward. Bound: bytes (table and idx read once, out written once); the
+// table is small (24 KB a sample at N = 1,024 and C = 6) and stays in L1
+// and L2, so what a design fights is latency: a dependent table load after
+// each idx load. Two kernels, by what the row allows:
+// - gather_fwd_vec_kernel, where C is a multiple of 4 and table and out are
+//   16-byte aligned: one thread per float4 of the output, grid y over the
+//   batch; threads of a warp read neighbouring float4s of a row and write
+//   neighbouring float4s.
+// - gather_fwd_rows_kernel, at any C and alignment (the narrow rows of this
+//   system, C = 3 and 6): a warp owns a run of 32 consecutive queries of the
+//   flattened (B x Q) output, whose 32 x C floats are contiguous. Each lane
+//   loads its query's idx once and leaves the row's offset in the table (-1
+//   out of range) in shared memory; then lane l takes the run's floats l,
+//   l + 32, ..: it reads its float's query offset there, loads 4 floats from
+//   the table before it stores them, and each store of the warp is 128
+//   contiguous bytes. No division by C: the caller passes C's reciprocal in
+//   fixed point for a lane's first float and the step of 32 floats as
+//   (queries, columns). Loads of neighbouring lanes fall in the same or the
+//   next row, so a warp's load touches few sectors. (Scratch variants on the
+//   H100: a float4 a lane, staging the run through shared memory for 16-byte
+//   stores, 2 or 8 floats ahead, or a grid-stride loop over runs were no
+//   faster; PERF.md.)
 //
 // Backward: deterministic, no atomics on floats, two launches give equal
 // bits. Bound: bytes (g and idx read once, d_table written once); at the
@@ -55,6 +72,7 @@
 namespace {
 
 constexpr int kFwdThreads = 256;
+constexpr int kFwdAhead = 4;  // floats a lane of the rows kernel loads before it stores
 constexpr int kHistThreads = 256;
 constexpr int kSumThreads = 128;
 constexpr int kAhead = 16;  // g rows a lane of the sum keeps in flight
@@ -71,11 +89,11 @@ __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// V is float or float4; Cv is the row width in units of V.
-template <typename I, typename V>
+// One thread per float4; Cv = C / 4.
+template <typename I>
 __global__ void __launch_bounds__(kFwdThreads)
-gather_fwd_kernel(const V* __restrict__ table, const I* __restrict__ idx,
-                  V* __restrict__ out, int N, unsigned Q, unsigned Cv) {
+gather_fwd_vec_kernel(const float4* __restrict__ table, const I* __restrict__ idx,
+                      float4* __restrict__ out, int N, unsigned Q, unsigned Cv) {
   const unsigned QCv = Q * Cv;
   const unsigned e = blockIdx.x * kFwdThreads + threadIdx.x;
   if (e >= QCv) return;
@@ -83,9 +101,65 @@ gather_fwd_kernel(const V* __restrict__ table, const I* __restrict__ idx,
   const unsigned q = e / Cv;
   const unsigned c = e - q * Cv;
   const long long n = static_cast<long long>(idx[b * Q + q]);
-  V v = zero_of(V());
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (n >= 0 && n < N) v = table[(b * N + n) * Cv + c];
   out[b * QCv + e] = v;
+}
+
+// A warp a run of 32 queries of the flattened (B x Q) output; see the notes
+// at the top. total = B * Q queries. (m, dq, dc) from the caller:
+// 65536 / C + 1 (0 where C > 128), and 32 floats as (dq queries, dc
+// columns), so that no lane divides by C.
+template <typename I>
+__global__ void __launch_bounds__(kFwdThreads)
+gather_fwd_rows_kernel(const float* __restrict__ table, const I* __restrict__ idx,
+                       float* __restrict__ out, int N, unsigned Q, unsigned C,
+                       long long total, unsigned m, unsigned dq, unsigned dc) {
+  __shared__ long long rows[kFwdThreads];  // a query's first float in the table, -1 for none
+  const int lane = threadIdx.x & 31;
+  const long long f = static_cast<long long>(blockIdx.x) * kFwdThreads + threadIdx.x;
+  const long long f0 = f - lane;
+  if (f0 >= total) return;  // the whole warp
+  long long ro = -1;
+  if (f < total) {
+    const long long n = static_cast<long long>(idx[f]);
+    const long long b = total <= 0xffffffffLL
+                            ? static_cast<long long>(static_cast<unsigned>(f) / Q) : f / Q;
+    if (n >= 0 && n < N) ro = (b * N + n) * C;
+  }
+  rows[threadIdx.x] = ro;
+  __syncwarp();
+  const long long* run_rows = rows + (threadIdx.x - lane);
+  const unsigned nq = static_cast<unsigned>(min(32LL, total - f0));  // queries of the run
+  const long long nf = static_cast<long long>(nq) * C;  // floats of the run
+  float* run = out + f0 * C;
+  // (query, column) of the lane's float e = lane, e + 32, ..; a step of 32
+  // floats is (dq queries, dc columns)
+  unsigned q = m ? (static_cast<unsigned>(lane) * m) >> 16 : 0u;
+  unsigned c = lane - q * C;
+  for (long long e0 = 0; e0 < nf; e0 += 32 * kFwdAhead) {
+    float v[kFwdAhead];
+#pragma unroll
+    for (int u = 0; u < kFwdAhead; ++u) {
+      float x = 0.f;
+      if (q < nq) {  // e < nf
+        const long long r = run_rows[q];
+        if (r >= 0) x = table[r + c];
+      }
+      v[u] = x;
+      q += dq;
+      c += dc;
+      if (c >= C) {
+        c -= C;
+        ++q;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdAhead; ++u) {
+      const long long e = e0 + 32 * u + lane;
+      if (e < nf) run[e] = v[u];
+    }
+  }
 }
 
 // The row a query adds to; N, the dump row, for an idx outside [0, N).
@@ -289,19 +363,22 @@ gather_bwd_sum_kernel(const V* __restrict__ g, const int* __restrict__ start,
 template <typename I>
 int launch_fwd(const float* table, const I* idx, float* out, int B, int N,
                int C, int Q, cudaStream_t stream) {
-  const bool vec = C % 4 == 0 &&
-                   (reinterpret_cast<size_t>(table) % 16 == 0) &&
-                   (reinterpret_cast<size_t>(out) % 16 == 0);
-  const unsigned Cv = vec ? C / 4 : C;
-  const unsigned QCv = static_cast<unsigned>(Q) * Cv;
-  const dim3 grid((QCv + kFwdThreads - 1) / kFwdThreads, B);
-  if (vec)
-    gather_fwd_kernel<I, float4><<<grid, kFwdThreads, 0, stream>>>(
+  if (C % 4 == 0 && reinterpret_cast<size_t>(table) % 16 == 0 &&
+      reinterpret_cast<size_t>(out) % 16 == 0) {
+    const unsigned Cv = C / 4;
+    const unsigned QCv = static_cast<unsigned>(Q) * Cv;
+    const dim3 grid((QCv + kFwdThreads - 1) / kFwdThreads, B);
+    gather_fwd_vec_kernel<I><<<grid, kFwdThreads, 0, stream>>>(
         reinterpret_cast<const float4*>(table), idx,
         reinterpret_cast<float4*>(out), N, Q, Cv);
-  else
-    gather_fwd_kernel<I, float><<<grid, kFwdThreads, 0, stream>>>(
-        table, idx, out, N, Q, Cv);
+  } else {
+    const long long total = static_cast<long long>(B) * Q;
+    const unsigned blocks = static_cast<unsigned>((total + kFwdThreads - 1) / kFwdThreads);
+    const unsigned m = C <= 128 ? 65536u / C + 1 : 0u;
+    const unsigned dq = 32u / C;
+    gather_fwd_rows_kernel<I><<<blocks, kFwdThreads, 0, stream>>>(
+        table, idx, out, N, Q, C, total, m, dq, 32u - dq * C);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

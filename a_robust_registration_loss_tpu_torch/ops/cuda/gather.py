@@ -15,7 +15,8 @@ idx is < 0 or >= N comes out as zeros, and its gradient is dropped.
 ``jnp.take_along_axis`` would clamp.
 
 The forward is a copy and equals ``torch.take_along_dim`` bit for bit for
-in-range idx. The backward is deterministic: every (row, column) sum is
+in-range idx: one launch, one thread per float4 where C is a multiple of 4
+and the table is 16-byte aligned, else a warp per run of 32 query rows. The backward is deterministic: every (row, column) sum is
 taken by one lane in ascending q from 0, the order of ``index_add_`` on the
 CPU, so it equals the plain version on the CPU bit for bit and two launches
 give equal bits. The plain version on the card sums with atomics in an order

@@ -14,13 +14,17 @@ the JAX kernel the same draw. Per-face constants come from ``prep_faces``
 (plain PyTorch on either device). The plain version follows the kernel op
 for op: the barycentric accept sits on a rounding knife edge (A+B+C == S
 in real arithmetic for an interior hit), so any re-association moves
-labels. Kernel and plain version are held to candidate geometry within
-1e-4, label disagreement at most 0.1% and acceptance rate within 10%.
+labels. The kernel tests mesh 2 for every candidate and mesh 1 only for
+those that hit mesh 2 (``&`` is exact), which changes no output: kernel and
+plain version are held to equal ``cand`` and ``ok`` bit for bit, on random
+draws and on ``adversarial_cases``.
 
-Bound on the H100: fp32 operations, 1,990 per candidate
-(``OPS_PER_CANDIDATE``): 5.9 us at C = 200,000 and 67 TFLOP/s, against
-2.4 us for its 8.2 MB at 3.35 TB/s. ``chip_smoke.py`` reports it beside the
-measured time.
+Bound on the H100: fp32 operations, the work these inputs need,
+``ops_needed``: 46 + 12 x 81 + p x 12 x 81 per candidate, p the share that
+hits mesh 2 (``_mesh_hit``). ``chip_smoke.py`` reports it beside the
+measured time, and beside it the bound of 1,990 operations per candidate
+(``OPS_PER_CANDIDATE``, both meshes for every candidate) that the rows of
+earlier kernels were measured against.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import math
 import torch
 
 from a_robust_registration_loss_tpu_torch._device import sqrt_rn
+from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops.cuda import _build
 
 NF = 12  # faces per AABB mesh
@@ -122,6 +127,12 @@ def _mesh_hit(rows, lines):
     return hit
 
 
+def ops_needed(n_candidates: int, hits2: int) -> int:
+    """fp32 operations that ``n_candidates`` candidates need when mesh 1 is
+    tested only for the ``hits2`` of them that hit mesh 2."""
+    return n_candidates * (46 + NF * 81) + hits2 * NF * 81
+
+
 def sample_and_hit_reference(u4, r, center, fv_prep):
     """Plain PyTorch version of the kernel: (cand (..., C, 6), ok (..., C)
     bool), with or without a leading batch axis on every argument."""
@@ -172,3 +183,81 @@ def sample_and_hit(u4, r, center, fv_prep):
     _build.check(rc, "arrl_resample")
     launches["batched" if lead else "single"] += 1
     return cand, ok.view(torch.bool)
+
+
+def _box_faces(lo, hi):
+    """The 12-triangle face vertices (12, 9) of the box [lo, hi] (3-sequences),
+    in the vertex order of ``geometry.bbox_face_vertices``."""
+    return G.bbox_face_vertices(torch.tensor([[lo, hi]], dtype=torch.float32))[0]
+
+
+ADVERSARIAL_CENTER = (0.25, -0.5, 0.125)  # the sampling sphere's, radius 1
+ADVERSARIAL_SIZES = (1, 31, 33, 255, 257, 513)  # prefixes of the lattice, on the "cube" boxes
+ADVERSARIAL_BOXES = ("cube", "corners", "face_plane", "flat", "inside", "far")
+ADVERSARIAL_CASES = (ADVERSARIAL_BOXES + tuple(f"cube C={n}" for n in ADVERSARIAL_SIZES)
+                     + ("batch 1", "batch 6"))  # the names of adversarial_cases
+
+
+def adversarial_cases(device=None):
+    """Candidate sets on the knife edges of the resampler, for holding the
+    kernel to its plain version: {name: (u4, r, center, fvs1, fvs2)}, the
+    face vertices (..., 12, 9) of the two boxes (``prep_faces`` makes the
+    kernel's rows).
+
+    The uniforms are a lattice: both sphere points take every pairing of
+    the azimuths k/8 (axis-aligned and diagonal directions) and the heights
+    u in {-1, -0.5, 0, 0.5, 1} (u = +-1 gives s = 0); 1,600 candidates,
+    40 with q1 = q2 (a zero direction), and many parallel to the faces of
+    the axis-aligned boxes (denominator 1e-12 exactly). The sphere has
+    radius 1 at ``ADVERSARIAL_CENTER``. Boxes, each case both meshes unless
+    named:
+    - "cube": a cube of side 1 off the sphere's centre by (1/8, 1/16, 0)
+      (mesh 1) and one of side 1.5 off it by (-1/16, 1/8, 0) (mesh 2): the
+      axis-aligned lines through the centre cross no face diagonal;
+    - "corners": half-sides (0.5, 0.5, 0.5 sqrt(2/3)) at the centre: the
+      lattice's lines through the centre meet face centres (on the
+      diagonal where a face's two triangles meet), edges and corners;
+    - "face_plane": a face in the plane y = centre_y, which holds many of
+      the lattice's lines;
+    - "flat": zero height, whose side faces have S = 0;
+    - "inside": a cube that holds the sphere: 80% of the lines hit both
+      meshes (the rest leave through a face diagonal, where neither
+      triangle takes them, or have no direction), so the kernel's second
+      pass has full warps;
+    - "far": a small cube far from the sphere, which 1% of the lines hit;
+    - "cube C=n": the first n candidates of "cube", n in ADVERSARIAL_SIZES;
+    - "batch 1": "corners" with a batch axis of 1; "batch 6": the six
+      boxes' cases stacked, one sample each.
+    """
+    steps = torch.arange(8, dtype=torch.float32) / 8
+    heights = torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0])
+    ua = steps.repeat_interleave(len(heights))
+    uu = heights.repeat(len(steps))
+    i, j = torch.meshgrid(torch.arange(len(ua)), torch.arange(len(ua)), indexing="ij")
+    i, j = i.reshape(-1), j.reshape(-1)
+    u4 = torch.stack([ua[i], uu[i], ua[j], uu[j]])
+    cx, cy, cz = ADVERSARIAL_CENTER
+    c = torch.tensor(ADVERSARIAL_CENTER)
+
+    def box(h, shift=(0.0, 0.0, 0.0)):
+        return _box_faces([cx + shift[0] - h[0], cy + shift[1] - h[1], cz + shift[2] - h[2]],
+                          [cx + shift[0] + h[0], cy + shift[1] + h[1], cz + shift[2] + h[2]])
+
+    third = 0.5 * (2.0 / 3.0) ** 0.5
+    boxes = {
+        "cube": (box((0.5, 0.5, 0.5), (0.125, 0.0625, 0.0)),
+                 box((0.75, 0.75, 0.75), (-0.0625, 0.125, 0.0))),
+        "corners": (box((0.5, 0.5, third)),) * 2,
+        "face_plane": (_box_faces([cx - 0.5, cy, cz - 0.3], [cx + 0.5, cy + 0.7, cz + 0.3]),) * 2,
+        "flat": (box((0.5, 0.4, 0.0)),) * 2,
+        "inside": (box((4.0, 4.0, 4.0)),) * 2,
+        "far": (box((0.25, 0.25, 0.25), (5.0, 5.0, 5.0)),) * 2,
+    }
+    one = torch.tensor(1.0)
+    cases = {name: (u4, one, c, *boxes[name]) for name in ADVERSARIAL_BOXES}
+    for n in ADVERSARIAL_SIZES:
+        cases[f"cube C={n}"] = (u4[:, :n].contiguous(), one, c, *boxes["cube"])
+    cases["batch 1"] = tuple(x[None] for x in cases["corners"])
+    cases["batch 6"] = tuple(torch.stack([cases[name][k] for name in ADVERSARIAL_BOXES])
+                             for k in range(5))
+    return {name: tuple(x.to(device) for x in case) for name, case in cases.items()}

@@ -29,7 +29,10 @@ Phases:
    data sheet's 67 TFLOP/s (which counts an FMA as two operations; the
    kernels are built without FMA);
 4. each kernel against its plain version on the card: stage 1 in pts mode
-   and the resampler at the classical path's width and a ragged shape, and
+   and the resampler at the classical path's width and a ragged shape (the
+   resampler's cand and ok bit for bit, each mesh's hit share and the
+   acceptance printed, then the same on every set of
+   ``adversarial_cases``), and
    stage 1 in every mode combination, one and two clouds, unbatched and
    batched, at config 2's width and a ragged shape, a batched launch equal
    to B single launches; stage 1's split of the faces into 4 segments at
@@ -39,7 +42,9 @@ Phases:
    torch.profiler, the wrapper call's time back to back from CUDA events),
    its plain version's time (CUDA events) and its bounds (the larger of
    bytes over 3.35 TB/s and fp32 operations over the measured rate, and over
-   67 TFLOP/s);
+   67 TFLOP/s; the resampler's operations are those its inputs need when
+   mesh 1 is tested only for the hits of mesh 2, with the bound of both
+   meshes for every candidate beside it);
 5. the classical path: ``prepare_pair``, then ``make_step`` for 50 warm-up
    and 200 timed epochs, one launch of each of its kernels per epoch, a
    20-step profile that fails on a host copy or wait, and the kernel path
@@ -70,7 +75,8 @@ Phases:
    backward's edge cases with int32 and int64 indices (one row takes every
    query, 5 rows do, indices out of range, all of them out of range);
 8. the resampler's batch axis: one launch at B = 4 and 150,000 candidates
-   per sample equal to 4 single launches bit for bit;
+   per sample equal to 4 single launches and the plain version bit for
+   bit, with each mesh's hit share;
 9. the kernels on the DCP path's own data, before the paths' long
    profiles: the gather kernels on the kNN indices of the model's own graph
    (forward equal to the features the model gathered, backward of the
@@ -198,9 +204,10 @@ def kernel_ms(torch, fn, reps, kernel=None, per_call=1, split=None):
     everything fn puts on the device (a library call, whose kernels' names
     are not ours to know). Back to back, a wrapper's host work can outlast
     its kernel, and CUDA events around the calls would then time the host.
-    Each named kernel must show all of its reps launches: the tracer now and
-    then loses the records of a window's tail, so a window that shows fewer
-    is traced again, and after ``TRACE_TRIES`` windows the check fails.
+    Each named kernel must show all of its reps launches, and a library call
+    some device activity: the tracer now and then loses the records of a
+    window's tail, so a window that shows fewer is traced again, and after
+    ``TRACE_TRIES`` windows the check fails.
     ``split``, a dict of {key: part of a kernel's name}, is filled with each
     part's mean ms per call."""
     from torch.autograd import DeviceType
@@ -219,10 +226,10 @@ def kernel_ms(torch, fn, reps, kernel=None, per_call=1, split=None):
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         seen = sum(map(len, by_name.values()))
         whole = len(by_name) == per_call and all(len(us) == reps for us in by_name.values())
-        if kernel is None or whole:
+        if by_name if kernel is None else whole:
             break
-        print(f"{kernel}: the profiler saw {seen} of {reps * per_call} launches; tracing again",
-              flush=True)
+        print(f"{kernel or 'the library call'}: the profiler saw {seen} of "
+              f"{reps * per_call} launches; tracing again", flush=True)
     if kernel is None:
         check(by_name, "the profiler saw no device activity of the library call")
     else:
@@ -466,36 +473,92 @@ def stage1_segments_phase(torch, M, IK, n1, n2, lines):
                   f"{int(ref[0].max())}: every output equals the plain version", flush=True)
 
 
+def resample_check(torch, RS, u4, r, c, fv, what):
+    """One launch against the plain version: cand and ok equal bit for bit,
+    the acceptance rates within 10% (the JAX package's bar between its own
+    paths, kept beside the exact one). Returns the largest difference of
+    cand or ok and the plain version's counts: hits of mesh 1, hits of
+    mesh 2, accepted, candidates."""
+    before = RS.launches.copy()
+    cand, ok = RS.sample_and_hit(u4, r, c, fv)
+    check(sum((RS.launches - before).values()) == 1, f"resample {what}: not one launch")
+    cand_r, ok_r = RS.sample_and_hit_reference(u4, r, c, fv)
+    h1 = int(RS._mesh_hit(fv[..., :RS.NF, :], cand_r).sum())
+    h2 = int(RS._mesh_hit(fv[..., RS.NF:, :], cand_r).sum())
+    check(torch.equal(cand, cand_r), f"resample {what}: cand differs from the plain version")
+    check(torch.equal(ok, ok_r), f"resample {what}: {int((ok != ok_r).sum())} labels differ "
+          "from the plain version")
+    acc, acc_r = float(ok.float().mean()), float(ok_r.float().mean())
+    check(abs(acc - acc_r) <= 0.1 * max(acc_r, 1e-3), f"resample {what}: acceptance {acc} vs {acc_r}")
+    err = max(float((cand - cand_r).abs().max()), float((ok.int() - ok_r.int()).abs().max()))
+    return err, h1, h2, int(ok_r.sum()), ok.numel()
+
+
+def resample_adversarial(torch, RS):
+    """``RS.adversarial_cases``: the kernel equals its plain version bit for
+    bit on each, and each batched launch its single launches."""
+    for name, (u4, r, c, f1, f2) in RS.adversarial_cases(DEV).items():
+        fv = RS.prep_faces(f1, f2)
+        _, h1, h2, acc, n = resample_check(torch, RS, u4, r, c, fv, f"adversarial {name}")
+        if u4.dim() == 3:
+            cand, ok = RS.sample_and_hit(u4, r, c, fv)
+            for b in range(u4.shape[0]):
+                one = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
+                check(torch.equal(cand[b], one[0]) and torch.equal(ok[b], one[1]),
+                      f"resample adversarial {name}: sample {b} differs from its single launch")
+        print(f"resample adversarial {name} {tuple(u4.shape)}: cand and ok equal the plain "
+              f"version bit for bit; mesh 1 {h1 / n:.4f}, mesh 2 {h2 / n:.4f}, accepted "
+              f"{acc / n:.4f}", flush=True)
+
+
+def resample_entry(torch, RS, name, u4, r, c, fv, rate, reps, checked, **extra):
+    """The kernel's entry on inputs that resample_check compared (``checked``
+    is what it returned): its time, its bound (the operations these inputs
+    need when mesh 1 is tested only for the hits of mesh 2) and the share
+    of it reached, beside them the bound of both meshes for every candidate
+    (``bound_full_work_*``, the count earlier kernels were measured against),
+    and the plain version's per-mesh hit shares."""
+    err, h1, h2, _, n = checked
+    ms = kernel_ms(torch, lambda: RS.sample_and_hit(u4, r, c, fv), reps, "resample_kernel")
+    call_ms = cuda_ms(torch, lambda: RS.sample_and_hit(u4, r, c, fv), reps)
+    plain_ms = cuda_ms(torch, lambda: RS.sample_and_hit_reference(u4, r, c, fv), 2, warmup=1)
+    B = u4.shape[0] if u4.dim() == 3 else 1
+    nbytes = n * 41 + B * (24 * 16 * 4 + 16)
+    needed = RS.ops_needed(n, h2)
+    (fb, _), (fbd, _) = bounds(n * RS.OPS_PER_CANDIDATE, nbytes, rate)
+    e = entry(name, "a_robust_registration_loss_tpu_torch/csrc/resample.cu",
+              "a_robust_registration_loss_tpu/ops/pallas/resample.py:43", err, ms, call_ms,
+              plain_ms, needed, nbytes, rate, hit_share_mesh1=h1 / n,
+              hit_share_mesh2=h2 / n, ops_needed=needed, ops_full_work=n * RS.OPS_PER_CANDIDATE,
+              bound_full_work_ms=fbd, bound_full_work_ms_measured_rate=fb, **extra)
+    nb = e["bound_ms_measured_rate"]
+    e.update(share_of_bound_measured_rate=nb / ms,
+             share_of_full_work_bound_measured_rate=fb / ms)
+    print(f"{name} ({extra.get('shape', f'C={n}')}): kernel {ms:.4f} ms, call {call_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms; mesh 1 hit by {h1 / n:.4f}, mesh 2 by {h2 / n:.4f}; bound "
+          f"{nb:.5f} ms at the measured rate for the work these inputs need ({nb / ms:.1%} of "
+          f"it reached), {fb:.5f} ms for both meshes on every candidate ({fb / ms:.1%})",
+          flush=True)
+    return e
+
+
 def resample_phase(torch, G, RS, data, gen, rate):
+    """The resampler at the classical path's width and at C = 777, exact,
+    then on the adversarial sets; its entry on the C = 200,000 draw that
+    was compared."""
     fv = RS.prep_faces(G.bbox_face_vertices(data["src"][None])[0],
                        G.bbox_face_vertices(data["tar"][None])[0])
     r, c = data["radius"], data["center"]
-    err = 0.0
+    drawn = {}
     for C in (10 * N_LINES, 777):
         u4 = torch.rand((4, C), generator=gen, device=DEV)
-        cand, ok = RS.sample_and_hit(u4, r, c, fv)
-        cand_r, ok_r = RS.sample_and_hit_reference(u4, r, c, fv)
-        e = float((cand - cand_r).abs().max())
-        flip = float((ok != ok_r).float().mean())
-        acc, acc_r = float(ok.float().mean()), float(ok_r.float().mean())
-        print(f"resample C={C}: max |cand - plain| {e:.3g}, labels differ on "
-              f"{flip:.5%}, acceptance {acc:.5f} vs plain {acc_r:.5f}", flush=True)
-        check(e <= 1e-4, f"resample C={C}: candidate geometry off by {e}")
-        check(flip <= 1e-3, f"resample C={C}: {flip:.3%} labels differ")
-        check(abs(acc - acc_r) <= 0.1 * max(acc_r, 1e-3),
-              f"resample C={C}: acceptance {acc} vs {acc_r}")
-        err = max(err, e)
-    C = 10 * N_LINES
-    u4 = torch.rand((4, C), generator=gen, device=DEV)
-    def call():
-        return RS.sample_and_hit(u4, r, c, fv)
-
-    ms = kernel_ms(torch, call, 50, "resample_kernel")
-    call_ms = cuda_ms(torch, call, 50)
-    plain = cuda_ms(torch, lambda: RS.sample_and_hit_reference(u4, r, c, fv), 3, warmup=1)
-    return entry("resample_sample_and_hit", "a_robust_registration_loss_tpu_torch/csrc/resample.cu",
-                 "a_robust_registration_loss_tpu/ops/pallas/resample.py:43", err, ms, call_ms,
-                 plain, C * RS.OPS_PER_CANDIDATE, C * 41 + 24 * 16 * 4 + 16, rate)
+        drawn[C] = u4, resample_check(torch, RS, u4, r, c, fv, f"C={C}")
+        _, h1, h2, acc, n = drawn[C][1]
+        print(f"resample C={C}: cand and ok equal the plain version bit for bit; mesh 1 hit "
+              f"by {h1 / n:.5f}, mesh 2 by {h2 / n:.5f}, accepted {acc / n:.5f}", flush=True)
+    resample_adversarial(torch, RS)
+    u4, checked = drawn[10 * N_LINES]
+    return resample_entry(torch, RS, "resample_sample_and_hit", u4, r, c, fv, rate, 50, checked)
 
 
 def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
@@ -809,7 +872,7 @@ def gather_times(torch, GK, table, idx, g):
     long_idx = idx.long()[..., None]
     into = torch.zeros((B * N, C), device=table.device)
     calls = {
-        "fwd": (lambda: GK.gather_rows_fwd(table, idx), "gather_fwd_kernel",
+        "fwd": (lambda: GK.gather_rows_fwd(table, idx), "gather_fwd_",
                 lambda: GK.gather_rows_reference(table, idx),
                 lambda: torch.take_along_dim(table, long_idx, 1)),
         "bwd": (lambda: GK.gather_rows_bwd(g, idx, N), "gather_bwd_",
@@ -889,7 +952,8 @@ def gather_phase(torch, GK, rate):
 
 def resample_batch_phase(torch, G, RS, batch, rate):
     """One batched launch at B = 4 and 150,000 candidates per sample equals
-    4 single launches bit for bit; its time and bounds."""
+    4 single launches and the plain version bit for bit; its time and
+    bounds."""
     C = 10 * L3
     gen = torch.Generator(device=DEV)
     gen.manual_seed(5)
@@ -907,25 +971,13 @@ def resample_batch_phase(torch, G, RS, batch, rate):
         cand_b, ok_b = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
         check(torch.equal(cand[b], cand_b) and torch.equal(ok[b], ok_b),
               f"resampler: sample {b} of the batched launch differs from its single launch")
-    cand_r, ok_r = RS.sample_and_hit_reference(u4, r, c, fv)
-    err = float((cand - cand_r).abs().max())
-    flip = float((ok != ok_r).float().mean())
-    check(err <= 1e-4 and flip <= 1e-3,
-          f"batched resampler against its plain version: geometry {err}, labels {flip:.3%}")
-    print(f"resample batched B={B3} C={C}: one launch equals {B3} single launches bit for "
-          f"bit; acceptance {float(ok.float().mean()):.4f}; against the plain version "
-          f"max |cand| diff {err:.3g}, labels differ on {flip:.5%}", flush=True)
-
-    def call():
-        return RS.sample_and_hit(u4, r, c, fv)
-
-    ms = kernel_ms(torch, call, 20, "resample_kernel")
-    call_ms = cuda_ms(torch, call, 20)
-    plain = cuda_ms(torch, lambda: RS.sample_and_hit_reference(u4, r, c, fv), 2, warmup=1)
-    return entry("resample_batched", "a_robust_registration_loss_tpu_torch/csrc/resample.cu",
-                 "a_robust_registration_loss_tpu/ops/pallas/resample.py:43", err, ms, call_ms,
-                 plain, B3 * C * RS.OPS_PER_CANDIDATE, B3 * (C * 41 + 24 * 16 * 4 + 16), rate,
-                 shape=f"B={B3} C={C}")
+    checked = resample_check(torch, RS, u4, r, c, fv, f"batched B={B3} C={C}")
+    _, h1, h2, acc, n = checked
+    print(f"resample batched B={B3} C={C}: one launch equals {B3} single launches and the "
+          f"plain version bit for bit; mesh 1 hit by {h1 / n:.5f}, mesh 2 by {h2 / n:.5f}, "
+          f"accepted {acc / n:.5f}", flush=True)
+    return resample_entry(torch, RS, "resample_batched", u4, r, c, fv, rate, 20, checked,
+                          shape=f"B={B3} C={C}")
 
 
 def dcp_batches(torch, G):

@@ -9,14 +9,18 @@ installed; the suite's conftest.py imports JAX, hence ``--noconftest``:
 Bars: stage 1 in every mode, one or two clouds, unbatched and batched:
 counts, slot indices, d2, recon and slot coordinates exactly equal (both
 sides round every operation on its own), and a batched launch equal to B
-single launches; the rate probe exactly equal to its plain version;
-resampler candidate geometry within 1e-4, at most 0.1% of labels differing
-and acceptance within 10% (the bars the JAX package holds its own two
-resampler paths to); each wrapper call counts one launch; the metrics on
+single launches; the rate probe exactly equal to its plain version; the
+resampler's candidates and labels exactly equal to its plain version (the
+kernel keeps every face test's arithmetic), on random draws and on
+``adversarial_cases``, with the acceptance rate also within 10% (the bar
+the JAX package holds its own two resampler paths to); each wrapper call
+counts one launch; the metrics on
 the card (rigid, batched generic, the trainers' batched rigid glue) within
 1e-4 relative (loss) and 5e-4 relative L2 (gradient) of the plain path on
 the CPU; a batched resampler launch equal to B single launches bit for bit;
-the row gather's forward equal to its plain version bit for bit, its
+the row gather's forward equal to its plain version and, in range, to
+``take_along_dim`` bit for bit at widths 1 to 8 and 128, ragged Q and a
+table one float off 16-byte alignment, its
 backward equal to the plain version on the CPU bit for bit (both sum in
 ascending q), within 1e-6 x sum |g| of the plain version on the card
 (atomics, in an order of their own) and equal between two launches, the
@@ -109,11 +113,29 @@ def test_resample_kernel_matches_plain(cuda_device):
         cand, ok = RS.sample_and_hit(u4, r, center, fv)
         assert (RS.launches["single"], RS.launches["batched"]) == (before[0] + 1, before[1])
         cand_r, ok_r = RS.sample_and_hit_reference(u4, r, center, fv)
-        assert float((cand - cand_r).abs().max()) <= 1e-4
-        assert float((ok != ok_r).float().mean()) <= 1e-3
+        assert torch.equal(cand, cand_r)
+        assert torch.equal(ok, ok_r)
         acc, acc_r = float(ok.float().mean()), float(ok_r.float().mean())
         assert acc_r > 0.01
         assert abs(acc - acc_r) <= 0.1 * acc_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RS.ADVERSARIAL_CASES)
+def test_resample_kernel_adversarial(cuda_device, case):
+    """The knife-edge candidate sets: one launch equal to the plain version
+    bit for bit, and a batched launch equal to its single launches."""
+    u4, r, c, f1, f2 = RS.adversarial_cases(cuda_device)[case]
+    fv = RS.prep_faces(f1, f2)
+    key = "batched" if u4.dim() == 3 else "single"
+    before = RS.launches[key]
+    cand, ok = RS.sample_and_hit(u4, r, c, fv)
+    assert RS.launches[key] == before + 1
+    cand_r, ok_r = RS.sample_and_hit_reference(u4, r, c, fv)
+    assert torch.equal(cand, cand_r) and torch.equal(ok, ok_r)
+    for b in range(u4.shape[0] if key == "batched" else 0):
+        one = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
+        assert torch.equal(cand[b], one[0]) and torch.equal(ok[b], one[1])
 
 
 @pytest.mark.cuda
@@ -388,6 +410,31 @@ def test_gather_kernels_match_plain(cuda_device, shape, dtype):
     inside = idx.clamp(0, N - 1)
     assert torch.equal(GK.gather_rows_fwd(table, inside),
                        torch.take_along_dim(table, inside.long()[..., None], 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 6, 7, 8, 128])
+def test_gather_forward_widths(cuda_device, C, dtype):
+    """The forward at every narrow width and C = 128, Q no multiple of 32,
+    a batch whose runs of queries straddle two samples, indices out of
+    range; then the same table one float off 16-byte alignment (the rows
+    kernel at C = 4 and 8 too). Equal to the plain version bit for bit,
+    and to take_along_dim in range; one launch a call."""
+    B, N, Q = 3, 300, 1001
+    g = torch.Generator().manual_seed(C)
+    flat = torch.randn(B * N * C + 1, generator=g).to(cuda_device)
+    idx = torch.randint(-3, N + 3, (B, Q), generator=g, dtype=dtype).to(cuda_device)
+    inside = idx.clamp(0, N - 1)
+    for table in (flat[:-1].view(B, N, C), flat[1:].view(B, N, C)):
+        before = GK.launches["fwd"]
+        out = GK.gather_rows_fwd(table, idx)
+        assert GK.launches["fwd"] == before + 1
+        assert torch.equal(out, GK.gather_rows_reference(table, idx))
+        bad = (idx < 0) | (idx >= N)
+        assert bool(bad.any()) and bool((out[bad] == 0).all())
+        assert torch.equal(GK.gather_rows_fwd(table, inside),
+                           torch.take_along_dim(table, inside.long()[..., None], 1))
 
 
 def _gather_edge_case(case, dtype):

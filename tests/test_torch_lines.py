@@ -15,9 +15,10 @@ and XLA paths label a sizeable share of the same candidates differently,
 and it holds them to the same rate bar (tests/test_pallas.py, bench.py's
 gate). A batched call of the plain path (leading axis B on every argument,
 the trainers' per-sample lines) equals the per-sample loop exactly. The
-one-to-one label bar (at most 0.1% disagreement) is held between
-the CUDA kernel and its plain version, which share their arithmetic:
-``tests/test_torch_cuda.py`` and chip_smoke.py.
+CUDA kernel and its plain version, which share their arithmetic, are held
+to equal candidates and labels bit for bit: ``tests/test_torch_cuda.py``
+and chip_smoke.py; ``tests/test_torch_resample.py`` holds the plain
+version's labels to the XLA path's on the knife-edge sets.
 """
 
 import numpy as np
