@@ -1,12 +1,15 @@
-"""PLY reader (ascii and binary_little_endian).
+"""PLY reader and writer (ascii and binary_little_endian).
 
-The port's own copy of the reader of
-``a_robust_registration_loss_tpu/data/plyio.py``: vertex x/y/z and
-triangular faces (larger polygons fan-triangulated); other vertex
-properties are read and discarded.
+The port's own copy of ``a_robust_registration_loss_tpu/data/plyio.py``.
+The reader takes vertex x/y/z and triangular faces (larger polygons
+fan-triangulated); other vertex properties are read and discarded. The
+writer writes the same bytes as the JAX package's: vertices, optional
+triangle faces and optional uniform or per-vertex colours.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -100,3 +103,55 @@ def read_ply(path: str):
     v = np.asarray(vertices, np.float32).reshape(-1, 3)
     fc = np.asarray(faces, np.int32).reshape(-1, 3)
     return v, fc
+
+
+def write_ply(path: str, vertices, faces=None, binary: bool = False,
+              colors=None):
+    """Write vertices (N, 3) (+ optional triangle faces) as PLY.
+
+    ``colors``: optional (3,) uniform or (N, 3) per-vertex colours, floats
+    in [0, 1] or integers in [0, 255] (clipped), written as uchar."""
+    v = np.asarray(vertices, np.float32).reshape(-1, 3)
+    fc = None if faces is None else np.asarray(faces, np.int32).reshape(-1, 3)
+    col = None
+    if colors is not None:
+        col = np.asarray(colors)
+        if np.issubdtype(col.dtype, np.integer):
+            col = np.clip(col, 0, 255).astype(np.uint8)
+        else:
+            col = (np.clip(col, 0.0, 1.0) * 255).astype(np.uint8)
+        col = np.broadcast_to(col.reshape(-1, 3), (len(v), 3))
+    fmt = "binary_little_endian" if binary else "ascii"
+    header = ["ply", f"format {fmt} 1.0", f"element vertex {len(v)}",
+              "property float x", "property float y", "property float z"]
+    if col is not None:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+    if fc is not None:
+        header += [f"element face {len(fc)}",
+                   "property list uchar int vertex_indices"]
+    header.append("end_header")
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            if col is None:
+                f.write(v.astype("<f4").tobytes())
+            else:
+                dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                               ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+                rec = np.empty(len(v), dt)
+                rec["x"], rec["y"], rec["z"] = v[:, 0], v[:, 1], v[:, 2]
+                rec["red"], rec["green"], rec["blue"] = col[:, 0], col[:, 1], col[:, 2]
+                f.write(rec.tobytes())
+            if fc is not None:
+                for face in fc:
+                    f.write(struct.pack("<B3i", 3, *face))
+        else:
+            for i, p in enumerate(v):
+                row = f"{p[0]:.8g} {p[1]:.8g} {p[2]:.8g}"
+                if col is not None:
+                    row += f" {col[i, 0]} {col[i, 1]} {col[i, 2]}"
+                f.write((row + "\n").encode())
+            if fc is not None:
+                for face in fc:
+                    f.write(f"3 {face[0]} {face[1]} {face[2]}\n".encode())

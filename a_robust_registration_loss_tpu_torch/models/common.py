@@ -39,14 +39,19 @@ def svd_orientation(H):
     """R = V diag(1, 1, det) U^T from H = src_c^T corr_c, with the
     reflection fix: where det(V U^T) < 0, V's last column is flipped.
 
-    H: (..., 3, 3) -> proper rotations (..., 3, 3)."""
-    U, _, Vh = torch.linalg.svd(H)
+    H: (..., 3, 3) -> proper rotations (..., 3, 3). A sample whose H is not
+    finite gets a NaN rotation, as the JAX package's SVD gives, where
+    LAPACK and cuSOLVER would raise: a poisoned batch then reaches the
+    trainer's finiteness guard (``train/harness.py:guarded_update``)."""
+    finite = torch.isfinite(H).all(dim=-1).all(dim=-1)[..., None, None]
+    U, _, Vh = torch.linalg.svd(torch.where(finite, H, torch.eye(3, dtype=H.dtype,
+                                                                 device=H.device)))
     V = Vh.transpose(-1, -2)
     Ut = U.transpose(-1, -2)
     det = torch.linalg.det(V @ Ut)
     flip = torch.ones_like(V)
     flip[..., :, 2] = torch.where(det < 0, -1.0, 1.0)[..., None]
-    return (V * flip) @ Ut
+    return torch.where(finite, (V * flip) @ Ut, float("nan"))
 
 
 def weighted_kabsch(a, b, weights):

@@ -1,10 +1,13 @@
-"""Carry the JAX package's DCP weights into the port.
+"""Carry the JAX package's DCP weights and Adam state into the port.
 
 ``dcp_from_flax`` turns the JAX package's DCP parameter tree (a nested dict
 of numpy arrays, ``model.init(...)["params"]`` or a restored checkpoint)
 into a ``state_dict`` for the port's ``models.dcp.DCP``. It is the inverse
 of the name map in ``a_robust_registration_loss_tpu/models/transplant.py:
 dcp_from_state_dict``; the port's names are the reference PyTorch DCP's.
+``adam_from_optax`` carries an optax Adam state over the same tree into the
+port's ``ops.adam.AdamState`` (flat, as ``train.harness`` steps it)
+through the same map.
 
 Layouts: a Dense kernel (in, out) transposes into a weight (out, in), with
 the trailing 1s of a pointwise convolution appended for the embedding nets
@@ -18,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from a_robust_registration_loss_tpu_torch.ops.adam import AdamState
 
 
 class _Tree:
@@ -116,3 +121,20 @@ def dcp_from_flax(params) -> dict:
     if tree.unused():
         raise KeyError(f"dcp_from_flax: parameters no module takes: {tree.unused()}")
     return sd
+
+
+def adam_from_optax(opt_state, names):
+    """An optax ``ScaleByAdamState`` over a JAX DCP parameter tree -> the
+    port's ``ops.adam.AdamState`` for the parameters ``names`` (in the
+    order of ``model.named_parameters()``).
+
+    opt_state: (count, mu, nu), the count a scalar and each moment a tree
+    keyed like the Flax parameters, as numpy arrays. The moments go through
+    ``dcp_from_flax``'s name map (it is linear, so it carries them as it
+    carries the weights) and are flattened and concatenated in ``names``'
+    order."""
+    count, mu, nu = opt_state
+    mu, nu = dcp_from_flax(mu), dcp_from_flax(nu)
+    return AdamState(torch.tensor(np.asarray(count, np.int32)).reshape(()),
+                     torch.cat([mu[n].reshape(-1) for n in names]),
+                     torch.cat([nu[n].reshape(-1) for n in names]))

@@ -133,10 +133,14 @@ def _bbox_tables(device):
     return bits.to(device), faces.to(device)
 
 
-def chamfer_distance(points_x, points_y):
+def chamfer_distance(points_x, points_y, per_sample: bool = False):
     """Mean over the concatenation of the two directions' nearest-neighbour
-    squared distances: points_x (B, M, 3), points_y (B, N, 3)."""
+    squared distances: points_x (B, M, 3), points_y (B, N, 3). A scalar over
+    the whole batch, or with ``per_sample`` one value per sample (B,), as
+    B separate calls give."""
     sqrdis = square_distance(points_x, points_y)
-    d1 = sqrdis.amin(dim=2).reshape(-1)
-    d2 = sqrdis.amin(dim=1).reshape(-1)
-    return torch.cat([d1, d2]).mean()
+    d1 = sqrdis.amin(dim=2)
+    d2 = sqrdis.amin(dim=1)
+    if per_sample:
+        return torch.cat([d1, d2], dim=-1).mean(-1)
+    return torch.cat([d1.reshape(-1), d2.reshape(-1)]).mean()

@@ -13,6 +13,14 @@ Semantics kept from the JAX package: the twist init (random unit axis *
 ``points @ R + t``; the lr 2e-2 halved every 1000 epochs *including epoch
 0*; chamfer distance as the independent check metric.
 
+Batched mode (``prepare_pairs``, ``make_batch_step``, ``run_batch``): B
+pairs registered at once, every per-pair tensor with a leading batch axis,
+one resampler launch and one stage-1 launch per epoch for all B. As in
+optax, the Adam count (and with it the bias correction and the lr
+schedule) is one scalar shared by the (B, 6) twists: a pair with no usable
+line keeps its twist and moments, and the count advances while any pair is
+valid.
+
 PyTorch idiom: the step is a plain function, ``run`` a Python loop over
 steps with no host sync inside a step; all randomness comes from one
 ``torch.Generator``. The step carry is ``(params, AdamState, src_prev)``,
@@ -22,18 +30,17 @@ as the JAX carry is ``(params, opt_state, src_prev)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from a_robust_registration_loss_tpu_torch import _device
+from a_robust_registration_loss_tpu_torch.ops import adam
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
+from a_robust_registration_loss_tpu_torch.ops.adam import AdamState
 from a_robust_registration_loss_tpu_torch.se3 import se3
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +55,6 @@ class ClassicalConfig:
     log_every: int = 10           # epochs per block between host fetches
     seed: int = 123
     compute_chamfer: bool = True
-
-
-class AdamState(NamedTuple):
-    """optax.adam's state: one count (the moment and schedule counts move
-    together) and the two moments."""
-    count: torch.Tensor  # () int32
-    mu: torch.Tensor     # (6,)
-    nu: torch.Tensor     # (6,)
 
 
 def init_twist(generator, rotation=None, translation=None):
@@ -75,25 +74,24 @@ def init_twist(generator, rotation=None, translation=None):
     return se3.log(g).reshape(-1) + perturb
 
 
-def init_adam(params) -> AdamState:
-    return AdamState(torch.zeros((), dtype=torch.int32, device=params.device),
-                     torch.zeros_like(params), torch.zeros_like(params))
+init_adam = adam.init  # a fresh AdamState shaped like the twist(s)
 
 
 def from_jax_state(params, opt_state, device=None):
     """The JAX twist and optax Adam state -> the port's (params, AdamState).
 
-    params: the (6,) twist; opt_state: (count, mu, nu) as numpy arrays, the
-    fields of optax's ScaleByAdamState."""
+    params: the (6,) twist, or the (B, 6) twists of a batch; opt_state:
+    (count, mu, nu) as numpy arrays, the fields of optax's ScaleByAdamState
+    (a scalar count, moments shaped like params). Shapes are kept."""
     dev = _device.resolve(device)
     count, mu, nu = opt_state
 
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
 
-    return f32(params).reshape(6), AdamState(
+    return f32(params), AdamState(
         torch.tensor(np.asarray(count, np.int32), device=dev).reshape(()),
-        f32(mu).reshape(6), f32(nu).reshape(6))
+        f32(mu), f32(nu))
 
 
 def apply_twist(params, points, point_neis):
@@ -137,20 +135,13 @@ def lr_schedule(cfg: ClassicalConfig):
 
 
 def adam_update(cfg: ClassicalConfig, params, opt: AdamState, grads, valid):
-    """One optax.adam step, written out, frozen where ``valid`` is False:
-    params, both moments and the count stay as they were."""
-    mu = (1 - ADAM_B1) * grads + ADAM_B1 * opt.mu
-    nu = (1 - ADAM_B2) * (grads * grads) + ADAM_B2 * opt.nu
-    count_inc = opt.count + 1
-    mu_hat = mu / (1 - ADAM_B1 ** count_inc)
-    nu_hat = nu / (1 - ADAM_B2 ** count_inc)
-    updates = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-    step_size = -1 * lr_schedule(cfg)(opt.count)  # lr at the pre-increment count
-    new_params = params + step_size * updates
-    return (torch.where(valid, new_params, params),
-            AdamState(torch.where(valid, count_inc, opt.count),
-                      torch.where(valid, mu, opt.mu),
-                      torch.where(valid, nu, opt.nu)))
+    """One optax.adam step at the schedule's lr, frozen where ``valid`` is
+    False: params, both moments and the count stay as they were. For a
+    batch (params (B, 6), ``valid`` (B,)) a pair's row freezes where its
+    valid is False, and the shared count only when no pair is valid."""
+    keep = valid[..., None] if valid.dim() else valid
+    # lr at the pre-increment count
+    return adam.step(lr_schedule(cfg)(opt.count), grads, opt, params, keep)
 
 
 def update(cfg: ClassicalConfig, data, carry, lines):
@@ -201,10 +192,16 @@ def run(src_vertices, tar_vertices, cfg: ClassicalConfig = ClassicalConfig(),
     else:
         params = torch.as_tensor(np.asarray(init_params, np.float32),
                                  device=dev).reshape(6)
-    carry = (params, init_adam(params), data["src"])
-    step = make_step(cfg, data)
-    n_cand = LN.ROUNDS * cfg.n_lines
+    return _loop(cfg, make_step(cfg, data), params, data["src"], gen, callback)
 
+
+def _loop(cfg: ClassicalConfig, step, params, src, gen, callback):
+    """The epochs of ``run`` and ``run_batch``: blocks of cfg.log_every
+    steps, each step's uniforms drawn from ``gen`` (shaped (4, C), or
+    (B, 4, C) for a batch of twists (B, 6)), each block's metrics fetched
+    one block late."""
+    carry = (params, init_adam(params), src)
+    u4_shape = params.shape[:-1] + (4, LN.ROUNDS * cfg.n_lines)
     history = []
     pending = None
     done = 0
@@ -212,7 +209,7 @@ def run(src_vertices, tar_vertices, cfg: ClassicalConfig = ClassicalConfig(),
         # the final block runs only the remaining epochs
         block = []
         for _ in range(min(cfg.log_every, cfg.n_epochs - done)):
-            u4 = torch.rand((4, n_cand), generator=gen, device=dev)
+            u4 = torch.rand(u4_shape, generator=gen, device=params.device)
             carry, metrics = step(carry, u4)
             block.append(metrics)
         done += len(block)
@@ -268,3 +265,95 @@ def final_transform(params):
     out[:3, :3] = R
     out[:3, 3] = p
     return R.astype(np.float32), p.astype(np.float32), out
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-pair registration: every per-pair tensor gains a leading
+# batch axis; Adam is elementwise, so per-pair moments ride along as (B, 6)
+# rows, and each pair's gradient depends only on its own twist row.
+# ---------------------------------------------------------------------------
+
+def prepare_pairs(src_batch, tar_batch, cfg: ClassicalConfig, device=None):
+    """Batched prepare_pair: (B, N, 3) x (B, M, 3) -> dict of (B, ...)
+    tensors, with the seed count clamped to min(cfg.num_sample, N, M)."""
+    dev = _device.resolve(device)
+    src = torch.as_tensor(np.asarray(src_batch, np.float32), device=dev)
+    tar = torch.as_tensor(np.asarray(tar_batch, np.float32), device=dev)
+    n = min(cfg.num_sample, src.shape[1], tar.shape[1])
+    neis_src = G.sample_neighs(src, n, 3)
+    neis_tar = G.sample_neighs(tar, n, 3)
+    c1 = src.mean(1, keepdim=True)
+    c2 = tar.mean(1, keepdim=True)
+    src, tar = src - c1, tar - c2
+    neis_src = neis_src - c1
+    neis_tar = neis_tar - c2
+    bbox = G.bounding_box_corners(tar)
+    B = src.shape[0]
+    return dict(
+        src=src, tar=tar,
+        neis_src=neis_src.reshape(B, n, 9),
+        neis_tar=neis_tar.reshape(B, n, 9),
+        radius=torch.linalg.vector_norm(bbox[:, 0] - bbox[:, -1], dim=-1),
+        center=tar.mean(1),
+        center_src=c1, center_tar=c2,
+    )
+
+
+def batch_update(cfg: ClassicalConfig, data, carry, lines):
+    """One epoch of B pairs on given lines (B, L, 6): the per-pair metric
+    (one stage-1 launch), the gradient of the sum of the valid pairs'
+    losses, the masked Adam step, then the sources moved by the NEW twists
+    (the next epoch's resampling boxes) and their chamfer distances.
+    carry = (params (B, 6), AdamState, src_prev (B, N, 3)) -> (carry,
+    metrics of shape (B,))."""
+    params, opt, _ = carry
+    p = params.detach().requires_grad_(True)
+    R, t = se3.exp3(p)
+    loss, valid = M.intersection_loss_rigid(
+        R, t, data["neis_src"], data["neis_tar"], lines, cfg.kmin, cfg.kmax)
+    losses = torch.where(valid, loss, 0.0)
+    (grads,) = torch.autograd.grad(losses.sum(), p, allow_unused=True)
+    with torch.no_grad():
+        grads = torch.zeros_like(p) if grads is None else grads
+        params, opt = adam_update(cfg, params, opt,
+                                  torch.where(valid[:, None], grads, 0.0), valid)
+        R, t = se3.exp3(params)
+        src_t = data["src"] @ R + t[:, None, :]
+        if cfg.compute_chamfer:
+            chamfer = G.chamfer_distance(src_t, data["tar"], per_sample=True)
+        else:
+            chamfer = torch.zeros(params.shape[0], device=src_t.device)
+    return (params, opt, src_t), dict(loss=losses.detach(), chamfer=chamfer,
+                                      valid=valid)
+
+
+def make_batch_step(cfg: ClassicalConfig, data):
+    """The batched epoch: ``step(carry, u4) -> (carry, metrics)`` with u4
+    the (B, 4, ROUNDS * n_lines) uniforms of each pair's resampling against
+    the bbox of its previously transformed source (carry[2]); one batched
+    resampler launch."""
+    def step(carry, u4):
+        lines = LN.resample_lines(u4, data["radius"], data["center"],
+                                  cfg.n_lines, carry[2], data["tar"])
+        return batch_update(cfg, data, carry, lines)
+    return step
+
+
+def run_batch(src_batch, tar_batch, cfg: ClassicalConfig = ClassicalConfig(),
+              callback=None, init_params=None, device=None):
+    """Optimise B registrations at once. src_batch/tar_batch: (B, N, 3) /
+    (B, M, 3). The twists start from B draws of ``init_twist`` from the
+    run's one generator, unless ``init_params`` (B, 6) is given; the
+    callback as in ``run``, with per-pair (B,) metrics. Returns (params
+    (B, 6), history of (n_epochs, B) metric arrays)."""
+    dev = _device.resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    data = prepare_pairs(src_batch, tar_batch, cfg, dev)
+    B = data["src"].shape[0]
+    if init_params is None:
+        params = torch.stack([init_twist(gen) for _ in range(B)])
+    else:
+        params = torch.as_tensor(np.asarray(init_params, np.float32),
+                                 device=dev).reshape(B, 6)
+    return _loop(cfg, make_batch_step(cfg, data), params, data["src"], gen, callback)

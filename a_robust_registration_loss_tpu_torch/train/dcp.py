@@ -1,11 +1,12 @@
-"""DCP's evaluation path: the per-batch metric battery and the whole-set
-artifact pass.
+"""Unsupervised DCP training and evaluation.
 
-Port of the serving half of ``a_robust_registration_loss_tpu/train/dcp.py``:
-``DCPTrainConfig`` (its model and loss), ``forward``, ``eval_step``,
-``artifact_fn`` and ``evaluate``. The training half (the train and pretrain
-steps, the trainer runtime with its checkpoints and logs, the CLI) is not
-ported yet.
+Port of ``a_robust_registration_loss_tpu/train/dcp.py`` without its CLI:
+the DCP network trained with the intersected-line metric. ``train_step``
+(forward, ``dcp_train_loss``, autograd to every parameter, the guarded Adam
+step at lr 1e-6), ``pretrain_step`` (an optional supervised phase on the
+ground truth, ``gt_consistency_loss`` at lr 1e-4), ``train`` (both phases
+on ``train.harness.Trainer``, each with a fresh optimiser), and the
+evaluation path: ``eval_step``, ``artifact_fn`` and ``evaluate``.
 
 A batch is a dict of tensors in the dataset contract's DCP form (column
 convention R): ``points_src_sample`` / ``points_tar_sample`` (B, N, 3),
@@ -27,18 +28,102 @@ import torch
 from a_robust_registration_loss_tpu_torch import _device
 from a_robust_registration_loss_tpu_torch.data import objio
 from a_robust_registration_loss_tpu_torch.eval import metrics as EM
-from a_robust_registration_loss_tpu_torch.models.dcp import DCP, DCPConfig
+from a_robust_registration_loss_tpu_torch.models.dcp import DCP, DCPConfig, reset_parameters
+from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
 
 
 @dataclasses.dataclass(frozen=True)
 class DCPTrainConfig:
+    lr: float = 1e-6
+    # the supervised pretrain phase that produces, in-repo, the supervised
+    # init the reference fine-tunes from: loss_gt, a fresh Adam at
+    # pretrain_lr; the main phase then starts with a fresh optimiser
+    pretrain_epochs: int = 0
+    pretrain_lr: float = 1e-4
     loss: L.LossConfig = L.LossConfig(n_lines=15000)
     model: DCPConfig = DCPConfig()
+    fit: harness.FitConfig = harness.FitConfig()
 
 
 def forward(model: DCP, batch):
     return model(batch["points_src_sample"], batch["points_tar_sample"])
+
+
+def train_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainConfig,
+               u4=None, generator=None):
+    """One training step: the forward, ``dcp_train_loss`` (lines from ``u4``
+    or drawn from ``generator``), its gradient to every parameter, and the
+    guarded Adam step at cfg.lr, in place on the model. Returns (opt_state,
+    metrics): the loss's monitors, ``loss`` and ``nonfinite_steps`` (1.0
+    where a non-finite loss or gradient left the model and the state as
+    they were)."""
+    params = list(model.parameters())
+    R_ab, t_ab, R_ba, t_ba = forward(model, batch)
+    loss, monitors = L.dcp_train_loss(batch, R_ab, t_ab, R_ba, t_ba, cfg.loss, u4, generator)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    loss = loss.detach()
+    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss)
+    return opt_state, dict(monitors, loss=loss, nonfinite_steps=nonfinite)
+
+
+def pretrain_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainConfig):
+    """One supervised pretraining step: ``gt_consistency_loss`` against the
+    batch's ground truth, the guarded Adam step at cfg.pretrain_lr, and the
+    Euler and translation monitors of the predictions before the step. No
+    lines are drawn. Returns (opt_state, metrics)."""
+    params = list(model.parameters())
+    R_ab, t_ab, _, _ = forward(model, batch)
+    loss = EM.gt_consistency_loss(R_ab, t_ab, batch["R"], batch["T"])
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    loss = loss.detach()
+    opt_state, nonfinite = harness.guarded_update(cfg.pretrain_lr, grads, opt_state, params,
+                                                  loss)
+    with torch.no_grad():
+        mae, rmse = EM.rotation_euler_errors(R_ab, batch["R"], seq="xyz")
+        return opt_state, dict(loss=loss, loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse,
+                               loss_translation=EM.translation_mse(t_ab, batch["T"]),
+                               nonfinite_steps=nonfinite)
+
+
+def init_model(cfg: DCPTrainConfig, seed: int, device=None) -> DCP:
+    """``DCP(cfg.model)`` with weights drawn from ``seed`` (on the CPU, so the
+    draw is the same on every device), on ``device`` (the GPU unless
+    "cpu")."""
+    model = DCP(cfg.model)
+    reset_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(_device.resolve(device))
+
+
+def train(cfg: DCPTrainConfig, train_loader, test_loader=None, init_from=None,
+          log=print, device=None):
+    """Full training: the model from ``init_from`` (a state dict) or drawn
+    from cfg.fit.seed, the pretrain phase (cfg.pretrain_epochs, its own
+    Trainer under ``exp_dir/pretrain``), then the main phase with eval,
+    checkpoints, metrics and artifacts under cfg.fit.exp_dir; each phase
+    resumes from its latest checkpoint. Loaders are iterables of batch dicts
+    (tensors or arrays). Returns (model, opt_state, history) of the main
+    phase."""
+    dev = _device.resolve(device)
+    model = init_model(cfg, cfg.fit.seed, dev)
+    if init_from is not None:
+        model.load_state_dict(init_from)
+    if cfg.pretrain_epochs:
+        pre_fit = dataclasses.replace(
+            cfg.fit, epochs=cfg.pretrain_epochs,
+            exp_dir=os.path.join(cfg.fit.exp_dir, "pretrain"))
+        pre_trainer = harness.Trainer(
+            lambda m, o, b, g: pretrain_step(m, o, b, cfg), None, pre_fit,
+            score_key="loss", score_mode="min", device=dev)
+        pre_trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
+                        log=lambda m: log(f"[pretrain] {m}"))
+    trainer = harness.Trainer(
+        lambda m, o, b, g: train_step(m, o, b, cfg, generator=g),
+        lambda m, b, g: eval_step(m, b, cfg, generator=g), cfg.fit,
+        score_key="loss", score_mode="min",
+        artifact_fn=artifact_fn, device=dev)
+    return trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
+                       test_loader, log=log)
 
 
 def _eval_batch(model, batch, cfg: DCPTrainConfig, u4=None, generator=None):

@@ -14,11 +14,13 @@ Drives the port's paths on the card:
   1,024-point Fibonacci sphere with 0.01 noise from seed 0, 1,024 FPS + 3-NN
   neighbourhoods per cloud, 5,000 lines per sample from ``batch_lines`` at
   radius scale 0.5;
-- DCP's evaluation path at ``DCPConfig``'s defaults (DGCNN with k = 20, one
-  transformer block of 4 heads and ff 1,024, the SVD head, 512 embedding
-  dimensions, weights from seed 0): 8 batches of 4 synthetic pairs of a
-  1,024-point noisy Fibonacci sphere from seed 0, 1,024 FPS + 3-NN
-  neighbourhoods per cloud, 15,000 lines per sample.
+- DCP's evaluation path and its training at ``DCPConfig``'s defaults (DGCNN
+  with k = 20, one transformer block of 4 heads and ff 1,024, the SVD head,
+  512 embedding dimensions, weights from seed 0): 8 batches of 4 synthetic
+  pairs of a 1,024-point noisy Fibonacci sphere from seed 0, 1,024 FPS + 3-NN
+  neighbourhoods per cloud, 15,000 lines per sample;
+- the batched classical step and the demo at ``bench.py``'s widths, 4
+  pairs.
 
 Phases:
 
@@ -93,9 +95,48 @@ Phases:
    forward and gradient of ``dcp_train_loss`` through the network to every
    parameter (finite, the SVD head's singular values apart), and
    5-iteration profiles of both that count host copies and waits without
-   failing on them.
+   failing on them;
+11. the batched classical path: 4 pairs in ``bench.py``'s shape (pair s a
+   4,096-point Fibonacci ellipsoid with 0.01 noise made from seed s, its
+   target the ellipsoid noised again and moved by a known small rigid
+   motion, ``planted_motion(s)``), ``prepare_pairs`` at F = 2,048, then
+   ``make_batch_step`` for 10 warm-up and 50 timed epochs at 20,000 lines a
+   pair, one batched resampler and one stage-1 launch an epoch for all 4
+   pairs, a 10-epoch profile that fails on a host copy or wait, and one
+   batched epoch against 4 single ``update``s on the same lines and twists
+   (losses within 1e-5 relative, twists within 1e-5); it prints
+   pair-iterations/s beside the single step's it/s of phase 5;
+12. the demo through its ``cli``, the 4 pairs written as OBJ files twice:
+   noisy as in phase 11, then each target an exact rigid copy of its
+   source. Each set runs once single (label 0) and once batched
+   (``--labels 0,1,2,3``), 200 epochs each with ``--log_every 20`` at the
+   demo's default widths; every expected file written
+   (``registration.png`` where matplotlib imports), one launch of each
+   kernel an epoch. Noisy pairs: each pair's last chamfer below its first
+   and its last transform within 0.05 rad and 0.05 of the planted motion.
+   Exact copies: each pair's chamfer down to 1e-6 in some epoch and, single,
+   a logged transform within 0.005 rad and 0.005 of the planted motion; a
+   pair that leaves the motion afterwards is printed with its epoch (the
+   metric's lower median collapses on noise-free copies and Adam's steps
+   carry the twist off, on the plain path and in the JAX package's
+   arithmetic too: ``tools/exact_copy_drift.py``). The demo prints its own
+   iters/sec and pair-iters/sec lines;
+13. DCP's training at the DCP path's width on its 8 batches: ``train`` for
+   1 pretrain and 2 epochs with 4 test batches, checkpoints every epoch and
+   artifacts; the state a resume loads equal to the state saved bit for bit
+   (every parameter, both moments, the count); the resume to 3 epochs, and
+   an uninterrupted 3-epoch run whose train loss is within 1e-5 relative of
+   the first run's in epochs 0 and 1 and of the resumed run's in epoch 2;
+   every metric finite; a NaN batch skipped with the model and the
+   optimiser state unchanged bit for bit, and ``guarded_update`` on the
+   card skipping one NaN or inf among the 5.57 M gradient entries; then
+   ``train_step``'s ms/iteration and a 5-iteration profile that counts host
+   copies and waits (the SVD head waits), and ``guarded_update``'s kernels,
+   in a profile that fails on a host copy or wait.
 
-Every phase that drives a path sets the launch counters to 0 just before
+Each phase's wall time is printed as it ends and all of them together
+before the kernels line. Every phase that drives a path sets the launch
+counters to 0 just before
 and reads them just after. Stage 1 is counted per template instantiation
 (``STAGE1``), so the entries' launches add up to the launches made. Prints
 one JSON object of the kernels on the line before the last, and as its
@@ -125,6 +166,16 @@ B2, N2, F2, L2 = 32, 1024, 1024, 5000  # BASELINE config 2
 WARMUP2, TIMED2, PROFILED2 = 2, 20, 5
 B3, N3, F3, L3, BATCHES3 = 4, 1024, 1024, 15000, 8  # the DCP path
 GRAD_ITERS3, PROFILED3 = 10, 5
+TEST3 = 4  # DCP training's test batches
+B1, WARMUP1, TIMED1, PROFILED1 = 4, 10, 50, 10  # the batched classical path
+DEMO_EPOCHS, DEMO_LOG_EVERY = 200, 20
+# the demo's last transform against the planted motion on noisy pairs: half
+# the least planted rotation (rad; Adam's steps at lr 1e-2 keep the twist
+# 0.0015 to 0.027 rad off it, epochs 50 to 300, tools/exact_copy_drift.py
+# --noisy) and the same in cloud units; on exact copies the least chamfer and
+# the nearest logged transform
+DEMO_ROT_TOL, DEMO_TRANS_TOL = 0.05, 0.05
+DEMO_EXACT_CHAMFER, DEMO_EXACT_TOL = 1e-6, 0.005
 GATHER_SHAPES = {"rpm_grouping": (4, 1024, 6, 65536), "wide": (4, 1024, 128, 65536),
                  "ragged": (3, 17, 5, 33)}  # (B, N, C, Q)
 # the backward's edge cases, (B, N, C, Q) each with int32 and int64 indices:
@@ -181,6 +232,15 @@ def synthetic_batch(B=B2, n=N2):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def timed(seconds, name, fn, *args):
+    """Run one phase, ``fn(*args)``, and keep its wall time in ``seconds``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = round(time.perf_counter() - t0, 2)
+    print(f"phase {name}: {seconds[name]} s", flush=True)
+    return out
 
 
 def cuda_ms(torch, fn, reps, warmup=2):
@@ -567,7 +627,8 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
     the kernels, the device time and its share of the unprofiled ``ms_per``,
     all per unit, and the costliest device operations. Fails if a call
     copies between host and device or waits for the device, unless not
-    ``strict``: then it counts them."""
+    ``strict``: then it counts them. Returns those numbers per unit (None
+    when the tracer recorded no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -610,11 +671,14 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
     if strict:
         check(copies == 0, f"{copies} host<->device copies in {n} {plural}")
         check(not any(syncs.values()), f"the {what} waits for the device: {syncs}")
+    return dict(kernels=kernels / n, busy_ms=busy, busy_share=busy / ms_per, copies=copies,
+                syncs=sum(syncs.values())) if by_name else None
 
 
 def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
     """prepare_pair's data -> 50 + 200 epochs of make_step, then the
-    profiled window; returns the launches per kernel in the 250 epochs."""
+    profiled window; returns (the launches per kernel in the 250 epochs,
+    the timed epochs' it/s)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     params = classical.init_twist(gen)
@@ -683,7 +747,7 @@ def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
     check(vk and vp, "no usable line in the parity check")
     check(abs(lk - lp) <= 1e-4 * max(abs(lp), 1e-6), f"loss {lk} vs plain {lp}")
     check(gerr <= 5e-4, f"gradient rel L2 {gerr}")
-    return launches
+    return launches, TIMED / dt
 
 
 def batch_data(torch, G, LS):
@@ -1231,6 +1295,354 @@ def dcp_kernels_phase(torch, mods, cfg, model, batch, rate):
     return dict(graph_gather=gather_launches, gather=times, stage1=stage1)
 
 
+def synthetic_pairs(B, n, exact=False):
+    """B pairs in ``bench.py``'s shape: pair s is made from seed s, a
+    Fibonacci ellipsoid with 0.01 noise as its source and its target moved by
+    a known small rigid motion (``planted_motion(s)``). The target is the
+    moved source itself when ``exact``, else the ellipsoid noised a second
+    time and moved."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    th = np.pi * (1 + 5**0.5) * i
+    p = np.stack([np.sin(phi) * np.cos(th), np.sin(phi) * np.sin(th), np.cos(phi)], -1)
+    p = (p * np.array([1.0, 0.7, 0.5])).astype(np.float32)
+    srcs, tars = [], []
+    for s in range(B):
+        rng = np.random.default_rng(s)
+        R, t = planted_motion(s)
+        srcs.append(p + rng.standard_normal(p.shape).astype(np.float32) * 0.01)
+        moved = srcs[-1] if exact else p + rng.standard_normal(p.shape).astype(np.float32) * 0.01
+        tars.append(moved @ R + t)
+    return np.stack(srcs), np.stack(tars)
+
+
+def planted_motion(s):
+    """Pair s's motion, row convention (target = source @ R + t): a rotation
+    of 0.1 + 0.05 s rad about z and a fixed shift."""
+    a = 0.1 + 0.05 * s
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
+    return R, np.float32([0.02, -0.01, 0.03])
+
+
+def motion_error(transform, s):
+    """The demo's 3 x 4 [R | t] between the centred clouds against pair s's
+    planted motion, which maps the centred source onto the centred target by
+    R alone: (the angle of R_est^T R in rad, |t_est|)."""
+    R, _ = planted_motion(s)
+    c = (np.trace(np.asarray(transform[:, :3], np.float64).T @ R) - 1) / 2
+    return float(np.arccos(np.clip(c, -1.0, 1.0))), float(np.linalg.norm(transform[:, 3]))
+
+
+def classical_batch_phase(torch, classical, IK, RS, PB, LN, single_its):
+    """The batched classical path (module docstring, phase 11): B1 pairs,
+    WARMUP1 + TIMED1 epochs of ``make_batch_step`` with one resampler and one
+    stage-1 launch an epoch for all of them, a profile that fails on a host
+    copy or wait, then one batched epoch against B1 single ``update``s on
+    the same lines and twists. Returns the launches of the driven epochs."""
+    cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES,
+                                    compute_chamfer=False)
+    src, tar = synthetic_pairs(B1, N_CLOUD)
+    t0 = time.perf_counter()
+    data = classical.prepare_pairs(src, tar, cfg, device=DEV)
+    torch.cuda.synchronize()
+    print(f"prepare_pairs: B={B1}, {time.perf_counter() - t0:.2f} s, "
+          f"F={data['neis_src'].shape[1]}", flush=True)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = torch.stack([classical.init_twist(gen) for _ in range(B1)])
+    carry = (params, classical.init_adam(params), data["src"])
+    step = classical.make_batch_step(cfg, data)
+    u4 = lambda: torch.rand((B1, 4, LN.ROUNDS * cfg.n_lines), generator=gen, device=DEV)
+
+    losses, valids = [], []
+    torch.cuda.synchronize()
+    counts(IK, RS, PB, reset=True)
+    for e in range(WARMUP1 + TIMED1):
+        if e == WARMUP1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        carry, m = step(carry, u4())
+        losses.append(m["loss"])
+        valids.append(m["valid"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts(IK, RS, PB)
+    n = WARMUP1 + TIMED1
+    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1}, n,
+                 "classical batch")
+    losses = torch.stack(losses).cpu().numpy()
+    check(losses.shape == (n, B1) and np.isfinite(losses).all(), "a batched loss is not finite")
+    check(bool(torch.stack(valids).all()), "a pair had no usable line in an epoch")
+    ms = 1e3 * dt / TIMED1
+    pair_its = B1 * TIMED1 / dt
+    print(f"classical batch: B={B1}, {n} epochs, F={N_FACES}, L={N_LINES}: {ms:.4f} ms/epoch, "
+          f"{pair_its:.2f} pair-iterations/s over the last {TIMED1} (the single step: "
+          f"{single_its:.2f} it/s, ratio {pair_its / single_its:.2f}); loss per pair "
+          f"{losses[0]} -> {losses[-1]}; launches {launches}", flush=True)
+    state = {"carry": carry}
+
+    def one_epoch():
+        state["carry"], _ = step(state["carry"], u4())
+
+    profile_phase(torch, one_epoch, PROFILED1, "epoch", ms)
+    carry = state["carry"]
+
+    # one batched epoch against B1 single updates on the same lines and twists
+    lines = LN.resample_lines(u4(), data["radius"], data["center"], cfg.n_lines, carry[2],
+                              data["tar"])
+    (pb, ob, _), mb = classical.batch_update(cfg, data, carry, lines)
+    singles = []
+    for b in range(B1):
+        one = {k: v[b] for k, v in data.items()}
+        opt = classical.AdamState(carry[1].count, carry[1].mu[b], carry[1].nu[b])
+        singles.append(classical.update(cfg, one, (carry[0][b], opt, carry[2][b]), lines[b]))
+    ls = torch.stack([m["loss"] for _, m in singles])
+    ps = torch.stack([c[0] for c, _ in singles])
+    lerr = float(((mb["loss"] - ls).abs() / ls.abs()).max())
+    perr = float((pb - ps).abs().max())
+    print(f"classical batch vs {B1} single updates on the same lines: loss rel err {lerr:.3g}, "
+          f"twist max abs err {perr:.3g}", flush=True)
+    check(bool(mb["valid"].all()), "no usable line in the batch-vs-single check")
+    check(lerr <= 1e-5, f"batched loss vs single: {lerr}")
+    check(perr <= 1e-5, f"batched twists vs single: {perr}")
+    return launches
+
+
+def demo_phase(torch, demo, IK, RS, PB):
+    """The demo through its ``cli`` (module docstring, phase 12): the B1
+    synthetic pairs as OBJ files, noisy and then exact copies, each once
+    single (label 0) and once batched (every label), DEMO_EPOCHS epochs each
+    at the demo's default widths. Returns the launches of all four runs,
+    added."""
+    import importlib.util
+    import tempfile
+
+    from a_robust_registration_loss_tpu_torch.data import objio
+
+    png = importlib.util.find_spec("matplotlib") is not None
+    total = {}
+    for kind in ("noisy", "exact"):
+        src, tar = synthetic_pairs(B1, N_CLOUD, exact=kind == "exact")
+        with tempfile.TemporaryDirectory() as tmp:
+            for i in range(B1):
+                objio.write_obj(os.path.join(tmp, f"{i}_src_sample.obj"), src[i])
+                objio.write_obj(os.path.join(tmp, f"{i}_tar_sample.obj"), tar[i])
+            base = ["--data_path", tmp, "--n_epochs", str(DEMO_EPOCHS), "--log_every",
+                    str(DEMO_LOG_EVERY)]
+            labels = ",".join(str(i) for i in range(B1))
+            runs = (("single", ["--label1", "0"], "resample_sample_and_hit"),
+                    ("batched", ["--labels", labels], "resample_batched"))
+            for what, extra, resampler in runs:
+                out = os.path.join(tmp, what)
+                torch.cuda.synchronize()
+                counts(IK, RS, PB, reset=True)
+                t0 = time.perf_counter()
+                hist = demo.cli(base + extra + ["--Save_path", out])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = counts(IK, RS, PB)
+                check_counts(launches, {resampler: 1, "stage1_pair_pts": 1}, DEMO_EPOCHS,
+                             f"demo {kind} {what}")
+                files = set(os.listdir(out))
+                logged = range(DEMO_LOG_EVERY, DEMO_EPOCHS + 1, DEMO_LOG_EVERY)
+                if what == "single":
+                    want = {f"{e}{suffix}" for e in logged for suffix in (".obj", "_transform.txt")}
+                    want |= {"target.obj", "source_pre.ply", "source.ply", "target.ply"}
+                    want |= {"registration.png"} if png else set()
+                else:
+                    want = {f"{i}_transform.txt" for i in range(B1)}
+                check(files == want, f"demo {kind} {what}: files {sorted(files ^ want)} differ")
+                ch = hist["chamfer"].reshape(DEMO_EPOCHS, -1)
+                check(np.isfinite(ch).all(), f"demo {kind} {what}: a chamfer is not finite")
+                # the transforms against the planted motions: the last one of
+                # every pair, and in single mode each logged one of pair 0
+                last = ([np.loadtxt(os.path.join(out, f"{DEMO_EPOCHS}_transform.txt"))]
+                        if what == "single" else
+                        [np.loadtxt(os.path.join(out, f"{i}_transform.txt")) for i in range(B1)])
+                err = np.array([motion_error(T, i) for i, T in enumerate(last)])
+                print(f"demo {kind} {what}: {DEMO_EPOCHS} epochs in {dt:.2f} s (set-up and files "
+                      f"included), chamfer first {ch[0]}, least {ch.min(0)} at epochs "
+                      f"{ch.argmin(0)}, last {ch[-1]}; last transform against the planted "
+                      f"motion: rotation error {err[:, 0]} rad, translation error "
+                      f"{err[:, 1]}; {len(files)} files; launches {launches}", flush=True)
+                if kind == "noisy":
+                    check((ch[-1] < ch[0]).all(), f"demo {kind} {what}: chamfer {ch[0]} -> "
+                          f"{ch[-1]}")
+                    check((err[:, 0] <= DEMO_ROT_TOL).all() and (err[:, 1] <= DEMO_TRANS_TOL).all(),
+                          f"demo {kind} {what}: last transform off the planted motion: {err}")
+                else:
+                    # noise-free copies: registered to the rounding level, then
+                    # possibly knocked off by the metric's median collapse (the
+                    # reference's Adam and metric; PERF.md, ROADMAP.md Queue 3)
+                    check((ch.min(0) <= DEMO_EXACT_CHAMFER).all(),
+                          f"demo {kind} {what}: least chamfer {ch.min(0)} never reached "
+                          f"{DEMO_EXACT_CHAMFER}")
+                    if what == "single":
+                        errs = [motion_error(np.loadtxt(os.path.join(out, f"{e}_transform.txt")), 0)
+                                for e in logged]
+                        best = min(errs)  # the least rotation error
+                        check(best[0] <= DEMO_EXACT_TOL and best[1] <= DEMO_EXACT_TOL,
+                              f"demo {kind} {what}: no logged transform near the planted "
+                              f"motion: {errs}")
+                        print(f"demo {kind} {what}: logged transform nearest the planted motion: "
+                              f"rotation error {best[0]:.3g} rad, translation {best[1]:.3g}",
+                              flush=True)
+                    for i in range(ch.shape[1]):
+                        reached = np.flatnonzero(ch[:, i] <= DEMO_EXACT_CHAMFER)
+                        reached = reached[0] if reached.size else DEMO_EPOCHS
+                        left = np.flatnonzero(ch[reached:, i] > 100 * DEMO_EXACT_CHAMFER)
+                        if left.size:
+                            print(f"demo {kind} {what}: pair {i} left the planted motion at "
+                                  f"epoch {reached + left[0]} (chamfer "
+                                  f"{ch[reached + left[0], i]:.3g}, last {ch[-1, i]:.3g})",
+                                  flush=True)
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def dcp_train_phase(torch, mods, cfg3, batches):
+    """DCP's training at full width (module docstring, phase 13): ``train``
+    for 1 pretrain and 2 epochs with a test loader, the state a resume loads
+    against the one saved, the resume to 3 epochs against an uninterrupted
+    3-epoch run, a NaN batch, ``guarded_update`` on the card, and profiles.
+    Returns the launches of the first ``train``."""
+    import dataclasses
+    import tempfile
+
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    G, M, IK, RS, PB, LS, GK, D, TD = mods
+    tests = batches[:TEST3]
+    quiet = lambda msg: None
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(exp, epochs):
+            fit = H.FitConfig(epochs=epochs, exp_dir=os.path.join(tmp, exp), save_every=1,
+                              artifacts_every=1, seed=0)
+            return dataclasses.replace(cfg3, pretrain_epochs=1, fit=fit)
+
+        torch.cuda.synchronize()
+        counts(IK, RS, PB, reset=True)
+        t0 = time.perf_counter()
+        model, state, hist = TD.train(config("run", 2), batches, tests, log=quiet,
+                                      device=DEV)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts(IK, RS, PB)
+        steps = 2 * len(batches) + 2 * len(tests)  # train steps and eval batches
+        check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1}, steps,
+                     "DCP train")
+        run = os.path.join(tmp, "run")
+        print(f"DCP train: 1 pretrain + 2 epochs of {len(batches)} batches, {len(tests)} "
+              f"test batches: {dt:.2f} s; epoch seconds (pretrain, then train with eval, "
+              f"checkpoint and artifacts) {_epoch_seconds(os.path.join(run, 'pretrain'))} "
+              f"{_epoch_seconds(run)}; train loss "
+              f"{[h['loss'] for h in hist]}; test loss_intersection "
+              f"{[h['test_loss_intersection'] for h in hist]}; launches {launches}", flush=True)
+        check(sorted(os.listdir(os.path.join(run, "checkpoints"))) == [
+            "checkpoints.json", "ckpt-0", "ckpt-1", "ckpt-best"], "DCP train: checkpoints")
+        check(len(os.listdir(os.path.join(run, "artifacts"))) == 8, "DCP train: artifacts")
+
+        # the state a resume loads equals the state saved, bit for bit
+        fresh = TD.init_model(cfg3, 99, DEV)
+        loaded, start = H.Trainer(lambda *a: None, None, config("run", 3).fit,
+                                  device=DEV).restore(fresh, H.adam_init(fresh.parameters()))
+        saved = model.state_dict()
+        check(start == 2, f"resume starts at epoch {start}")
+        check(all(torch.equal(v, saved[k]) for k, v in fresh.state_dict().items()),
+              "the resumed parameters differ from the saved ones")
+        check(all(torch.equal(a, b) for a, b in zip(loaded, state)),
+              "the resumed optimiser state differs from the saved one")
+
+        _, _, resumed = TD.train(config("run", 3), batches, tests, log=quiet,
+                                 device=DEV)
+        _, _, full = TD.train(config("full", 3), batches, tests, log=quiet, device=DEV)
+        # the uninterrupted run against the first run (epochs 0 and 1) and
+        # against the resumed one (epoch 2)
+        errs = [abs(h["loss"] - f["loss"]) / abs(f["loss"])
+                for h, f in zip(hist + resumed, full)]
+        print(f"DCP resume: epoch {resumed[0]['epoch']} train loss {resumed[0]['loss']:.9f}, "
+              f"uninterrupted {full[2]['loss']:.9f}; train loss rel err against the "
+              f"uninterrupted run by epoch {[f'{e:.3g}' for e in errs]}; loaded state equal "
+              "to the saved one bit for bit", flush=True)
+        check([h["epoch"] for h in resumed] == [2], "the resume did not run epoch 2 alone")
+        check(len(errs) == 3 and max(errs) <= 1e-5, f"train loss vs uninterrupted: {errs}")
+        for h in hist + resumed + full:
+            check(all(np.isfinite(v) for v in h.values()), f"a metric is not finite: {h}")
+            check(h["nonfinite_steps"] == 0.0, f"a step was skipped: {h}")
+
+    # a NaN batch: the model and the optimiser state stay as they were
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    poisoned = dict(batches[0])
+    poisoned["points_src_sample"] = batches[0]["points_src_sample"].clone()
+    poisoned["points_src_sample"][0, 0, 0] = float("nan")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    after, m = TD.train_step(model, state, poisoned, cfg3, generator=gen)
+    check(float(m["nonfinite_steps"]) == 1.0, "the NaN batch was not skipped")
+    check(all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
+          "the NaN batch changed the model")
+    check(all(torch.equal(a, b) for a, b in zip(after, state)),
+          "the NaN batch changed the optimiser state")
+
+    # guarded_update on the card: one NaN, one inf among 5.6 M gradient
+    # entries skip the step; a huge finite gradient does not
+    params = list(model.parameters())
+    grads = [torch.randn_like(p) for p in params]
+    one_loss = torch.ones((), device=DEV)
+    for bad in (float("nan"), float("inf")):
+        g = [x.clone() for x in grads]
+        g[len(g) // 2].view(-1)[7] = bad
+        new, flag = H.guarded_update(cfg3.lr, g, state, params, one_loss)
+        check(float(flag) == 1.0 and all(torch.equal(a, b) for a, b in zip(new, state)),
+              f"guarded_update took a step with a {bad} gradient")
+        check(all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
+              f"guarded_update changed the model on a {bad} gradient")
+    huge = [x * 1e37 for x in grads]
+    new, flag = H.guarded_update(0.0, huge, state, params, one_loss)
+    check(float(flag) == 0.0 and int(new.count) == int(state.count) + 1,
+          "guarded_update skipped a finite gradient")
+    print("DCP NaN batch skipped, model and optimiser state unchanged bit for bit; "
+          "guarded_update skips a NaN or inf gradient entry, takes a 1e37 one", flush=True)
+
+    # train_step alone: ms/iteration and its profile; guarded_update's share
+    st = {"s": state, "i": 0}
+
+    def one():
+        st["s"], _ = TD.train_step(model, st["s"], batches[st["i"] % len(batches)], cfg3,
+                                   generator=gen)
+        st["i"] += 1
+
+    for _ in range(WARMUP2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAD_ITERS3):
+        one()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / GRAD_ITERS3
+    print(f"DCP train_step: {ms:.4f} ms/iteration over {GRAD_ITERS3}", flush=True)
+    prof = profile_phase(torch, one, PROFILED3, "iteration", ms, strict=False)
+    upd = {"s": st["s"]}
+
+    def update():
+        upd["s"], _ = H.guarded_update(cfg3.lr, grads, upd["s"], params, one_loss)
+
+    ms_upd = cuda_ms(torch, update, 10)
+    prof_upd = profile_phase(torch, update, PROFILED3, "update", ms_upd)
+    print(f"guarded_update over {len(params)} parameter tensors ({sum(p.numel() for p in params)}"
+          f" values): {ms_upd:.4f} ms, {prof_upd and prof_upd['kernels']} kernels of the "
+          f"{prof and prof['kernels']} a train_step launches", flush=True)
+    return launches
+
+
+def _epoch_seconds(exp_dir):
+    """The ``time/epoch_seconds`` records of a run's metrics log."""
+    with open(os.path.join(exp_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["value"] for r in recs if r["tag"] == "time/epoch_seconds"]
+
+
 def main():
     import torch
 
@@ -1238,6 +1650,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from a_robust_registration_loss_tpu_torch import demo
     from a_robust_registration_loss_tpu_torch.models import dcp as D
     from a_robust_registration_loss_tpu_torch.ops import geometry as G
     from a_robust_registration_loss_tpu_torch.ops import lines as LN
@@ -1260,10 +1673,11 @@ def main():
 
     t0 = time.perf_counter()
     _build.library()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    seconds = {"build": round(time.perf_counter() - t0, 2)}  # wall seconds by phase
+    print(f"kernels built in {seconds['build']} s", flush=True)
     print(_build.build_log.strip(), flush=True)
 
-    probe, rate, probe_launches = probe_phase(torch, PB)
+    probe, rate, probe_launches = timed(seconds, "probe", probe_phase, torch, PB)
 
     cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES,
                                     compute_chamfer=False)
@@ -1278,21 +1692,23 @@ def main():
     gen.manual_seed(1)
     lines = LN.resample_lines(torch.rand((4, LN.ROUNDS * N_LINES), generator=gen, device=DEV),
                               data["radius"], data["center"], N_LINES, data["src"], data["tar"])
-    pts = stage1_phase(torch, M, IK, data, lines, rate)
-    resample = resample_phase(torch, G, RS, data, gen, rate)
+    pts = timed(seconds, "stage1", stage1_phase, torch, M, IK, data, lines, rate)
+    resample = timed(seconds, "resample", resample_phase, torch, G, RS, data, gen, rate)
     src2, n1, n2, lines2 = batch_data(torch, G, LS)
-    modes = stage1_modes_phase(torch, M, IK, n1, n2, lines2, rate)
-    stage1_segments_phase(torch, M, IK, n1, n2, lines2)
-    gather = gather_phase(torch, GK, rate)
+    modes = timed(seconds, "stage1_modes", stage1_modes_phase, torch, M, IK, n1, n2, lines2, rate)
+    timed(seconds, "stage1_segments", stage1_segments_phase, torch, M, IK, n1, n2, lines2)
+    gather = timed(seconds, "gather", gather_phase, torch, GK, rate)
     t0 = time.perf_counter()
     batches3 = dcp_batches(torch, G)
     torch.cuda.synchronize()
     print(f"DCP data: {BATCHES3} batches of B={B3} N={N3} F={F3}, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    resample_batched = resample_batch_phase(torch, G, RS, batches3[0], rate)
+    resample_batched = timed(seconds, "resample_batched", resample_batch_phase, torch, G, RS,
+                             batches3[0], rate)
     mods3 = (G, M, IK, RS, PB, LS, GK, D, TD)
     cfg3, model3 = dcp_model(torch, D, TD, LS)
-    dcp = dcp_kernels_phase(torch, mods3, cfg3, model3, batches3[0], rate)
+    dcp = timed(seconds, "dcp_kernels", dcp_kernels_phase, torch, mods3, cfg3, model3, batches3[0],
+                rate)
     src = "a_robust_registration_loss_tpu_torch/csrc/intersect.cu"
     kernels = [pts] + [
         entry(name, src, "a_robust_registration_loss_tpu/ops/pallas/intersect.py:56",
@@ -1349,17 +1765,25 @@ def main():
               f"measured rate ({k['bound_ms_measured_rate'] / k['ms']:.1%} of it reached), "
               f"{k['bound_ms']:.5f} ms by {k['bound_by']} at the data sheet's", flush=True)
 
-    classical_launches = main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg)
-    objective, mix = batch_path(torch, M, IK, RS, PB, LS, se3, src2, n1, n2, lines2)
-    dcp_eval, dcp_grad = dcp_path(torch, mods3, cfg3, model3, batches3)
+    classical_launches, single_its = timed(seconds, "classical", main_path, torch, classical,
+                                           se3, G, M, IK, RS, PB, LN, data, cfg)
+    objective, mix = timed(seconds, "batched_metric", batch_path, torch, M, IK, RS, PB, LS,
+                           se3, src2, n1, n2, lines2)
+    dcp_eval, dcp_grad = timed(seconds, "dcp", dcp_path, torch, mods3, cfg3, model3, batches3)
+    classical_batch = timed(seconds, "classical_batch", classical_batch_phase, torch, classical, IK,
+                            RS, PB, LN, single_its)
+    demo_launches = timed(seconds, "demo", demo_phase, torch, demo, IK, RS, PB)
+    dcp_train = timed(seconds, "dcp_train", dcp_train_phase, torch, mods3, cfg3, batches3)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
-             "dcp_graph_gather": dcp["graph_gather"]}
+             "dcp_graph_gather": dcp["graph_gather"], "classical_batch": classical_batch,
+             "demo": demo_launches, "dcp_train": dcp_train}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']}: launched on no path")
+    print(f"wall seconds by phase: {json.dumps(seconds)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_ms_measured_rate", "bound_by_measured_rate", "call_ms",

@@ -60,6 +60,10 @@ def test_importing_the_port_loads_no_jax():
             "import a_robust_registration_loss_tpu_torch.models.transplant\n"
             "import a_robust_registration_loss_tpu_torch.eval.metrics\n"
             "import a_robust_registration_loss_tpu_torch.ops.cuda.gather\n"
+            "import a_robust_registration_loss_tpu_torch.demo\n"
+            "import a_robust_registration_loss_tpu_torch.utils\n"
+            "import a_robust_registration_loss_tpu_torch.utils.viz\n"
+            "import a_robust_registration_loss_tpu_torch.train.harness\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'flax', 'a_robust_registration_loss_tpu')]\n"
             "assert not bad, bad\n")
@@ -79,6 +83,30 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         TC.prepare_pair(pts, pts, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TC.from_jax_state(np.zeros(6), (0, np.zeros(6), np.zeros(6)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC.run_batch(pts[None], pts[None], cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC.prepare_pairs(pts[None], pts[None], cfg)
+
+
+def test_trainers_refuse_a_missing_card(monkeypatch, tmp_path):
+    """DCP's training and the trainer runtime run on the card unless asked
+    for the CPU."""
+    from a_robust_registration_loss_tpu_torch.models import dcp as D
+    from a_robust_registration_loss_tpu_torch.train import dcp as TD
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fit = H.FitConfig(epochs=1, exp_dir=str(tmp_path), log_tensorboard=False)
+    cfg = TD.DCPTrainConfig(model=D.DCPConfig(emb_nn="pointnet", emb_dims=32, ff_dims=64),
+                            fit=fit)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.train(cfg, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.init_model(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        H.Trainer(lambda *a: None, None, fit)
+    assert H.Trainer(lambda *a: None, None, fit, device="cpu").device.type == "cpu"
 
 
 def test_probe_and_metric_refuse_a_missing_card(monkeypatch):
