@@ -1,13 +1,17 @@
-"""Carry the JAX package's DCP weights and Adam state into the port.
+"""Carry the JAX package's DCP and FMR weights and Adam state into the port,
+and read a reference PyTorch checkpoint.
 
 ``dcp_from_flax`` turns the JAX package's DCP parameter tree (a nested dict
 of numpy arrays, ``model.init(...)["params"]`` or a restored checkpoint)
 into a ``state_dict`` for the port's ``models.dcp.DCP``. It is the inverse
 of the name map in ``a_robust_registration_loss_tpu/models/transplant.py:
 dcp_from_state_dict``; the port's names are the reference PyTorch DCP's.
-``adam_from_optax`` carries an optax Adam state over the same tree into the
-port's ``ops.adam.AdamState`` (flat, as ``train.harness`` steps it)
-through the same map.
+``fmr_from_flax`` does the same for FMR's ``SolveRegistration``, the
+inverse of ``fmr_from_state_dict`` there. ``adam_from_optax`` carries an
+optax Adam state over either tree into the port's ``ops.adam.AdamState``
+(flat, as ``train.harness`` steps it) through the same map.
+``load_torch_state_dict`` reads a reference ``.pth`` for
+``load_state_dict``.
 
 Layouts: a Dense kernel (in, out) transposes into a weight (out, in), with
 the trailing 1s of a pointwise convolution appended for the embedding nets
@@ -46,7 +50,7 @@ class _Tree:
 
     def take(self, path: str):
         if path not in self.leaves:
-            raise KeyError(f"dcp_from_flax: missing parameter {path!r}")
+            raise KeyError(f"missing parameter {path!r}")
         self.used.add(path)
         return torch.tensor(self.leaves[path], dtype=torch.float32)
 
@@ -123,18 +127,68 @@ def dcp_from_flax(params) -> dict:
     return sd
 
 
-def adam_from_optax(opt_state, names):
-    """An optax ``ScaleByAdamState`` over a JAX DCP parameter tree -> the
+def fmr_from_flax(params) -> dict:
+    """JAX-package FMR ``SolveRegistration`` params -> the port's
+    ``state_dict``: ``encoder/Dense_{0..4}`` to ``encoder.h1.{0,3}`` and
+    ``encoder.h2.{0,3,6}`` ((out, in, 1) weights and biases), their
+    GroupNorms to the next index, ``decoder/Dense_{0..3}`` to
+    ``decoder.fc{1..4}``, ``decoder/TorchGroupNorm_{0..2}`` to
+    ``decoder.bn{1..3}``, and ``dt``. A tree without a decoder gives a
+    state dict without one. Raises ``KeyError`` on a missing parameter and
+    on one that no module of the port takes."""
+    tree = _Tree(params)
+    sd = {}
+
+    def dense(src, dst, ones=0):
+        w = tree.take(f"{src}/kernel").T.contiguous()
+        sd[f"{dst}.weight"] = w.reshape(w.shape + (1,) * ones)
+        sd[f"{dst}.bias"] = tree.take(f"{src}/bias")
+
+    def groupnorm(src, dst):
+        sd[f"{dst}.weight"] = tree.take(f"{src}/GroupNorm_0/scale")
+        sd[f"{dst}.bias"] = tree.take(f"{src}/GroupNorm_0/bias")
+
+    for i, (block, li) in enumerate([("h1", 0), ("h1", 3), ("h2", 0), ("h2", 3), ("h2", 6)]):
+        dense(f"encoder/Dense_{i}", f"encoder.{block}.{li}", ones=1)
+        groupnorm(f"encoder/TorchGroupNorm_{i}", f"encoder.{block}.{li + 1}")
+    if tree.has("decoder"):
+        for i in range(4):
+            dense(f"decoder/Dense_{i}", f"decoder.fc{i + 1}")
+        for i in range(3):
+            groupnorm(f"decoder/TorchGroupNorm_{i}", f"decoder.bn{i + 1}")
+    sd["dt"] = tree.take("dt").reshape(1, 6)
+    if tree.unused():
+        raise KeyError(f"fmr_from_flax: parameters no module takes: {tree.unused()}")
+    return sd
+
+
+def adam_from_optax(opt_state, names, from_flax=dcp_from_flax):
+    """An optax ``ScaleByAdamState`` over a JAX parameter tree -> the
     port's ``ops.adam.AdamState`` for the parameters ``names`` (in the
     order of ``model.named_parameters()``).
 
     opt_state: (count, mu, nu), the count a scalar and each moment a tree
     keyed like the Flax parameters, as numpy arrays. The moments go through
-    ``dcp_from_flax``'s name map (it is linear, so it carries them as it
-    carries the weights) and are flattened and concatenated in ``names``'
-    order."""
+    ``from_flax``'s name map (``dcp_from_flax`` or ``fmr_from_flax``: it is
+    linear, so it carries them as it carries the weights) and are flattened
+    and concatenated in ``names``' order."""
     count, mu, nu = opt_state
-    mu, nu = dcp_from_flax(mu), dcp_from_flax(nu)
+    mu, nu = from_flax(mu), from_flax(nu)
     return AdamState(torch.tensor(np.asarray(count, np.int32)).reshape(()),
                      torch.cat([mu[n].reshape(-1) for n in names]),
                      torch.cat([nu[n].reshape(-1) for n in names]))
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A reference ``.pth`` / ``.t7`` checkpoint -> a state dict of CPU
+    tensors for ``load_state_dict``: the ``{"state_dict": ...}`` container
+    some savers use is unwrapped, DataParallel's ``module.`` prefix is
+    stripped, and entries that are not tensors (epoch counters, scores) are
+    skipped. Raises ``ValueError`` when no tensor is left."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    out = {k.removeprefix("module."): v for k, v in sd.items()
+           if isinstance(v, torch.Tensor)}
+    if not out:
+        raise ValueError(f"{path}: no tensor entries found (keys: {sorted(sd)[:8]}...)")
+    return out

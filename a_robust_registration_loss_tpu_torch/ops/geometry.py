@@ -1,13 +1,14 @@
-"""Geometry primitives of the classical registration path: pairwise
-distances, FPS, k-NN, FPS+kNN neighbourhoods, bounding boxes and their
-12-triangle meshes, chamfer distance.
+"""Geometry primitives of the registration paths and the data layer:
+pairwise distances, FPS, k-NN, FPS+kNN neighbourhoods, bounding boxes and
+their 12-triangle meshes, chamfer distance, vertex normals of a mesh and
+PCA normals of a bare cloud.
 
 Port of the subset of ``a_robust_registration_loss_tpu/ops/geometry.py``
-that the classical step runs. Indices follow the JAX package exactly: FPS
-takes the first argmax (``torch.argmax`` does too), and kNN keeps
-``lax.top_k``'s tie order, lower index first, through a stable ascending
-sort (``torch.topk`` leaves the order of ties unspecified). Indices are
-int64, PyTorch's index type.
+that the classical step and the data layer run. Indices follow the JAX
+package exactly: FPS takes the first argmax (``torch.argmax`` does too),
+and kNN keeps ``lax.top_k``'s tie order, lower index first, through a
+stable ascending sort (``torch.topk`` leaves the order of ties
+unspecified). Indices are int64, PyTorch's index type.
 """
 
 from __future__ import annotations
@@ -144,3 +145,36 @@ def chamfer_distance(points_x, points_y, per_sample: bool = False):
     if per_sample:
         return torch.cat([d1, d2], dim=-1).mean(-1)
     return torch.cat([d1.reshape(-1), d2.reshape(-1)]).mean()
+
+
+def vertex_normals(vertices, faces):
+    """Area-weighted unit vertex normals of a mesh: each face's cross
+    product scatter-added onto its three corners (``index_add_``).
+    vertices (N, 3), faces (F, 3) -> (N, 3); a vertex on no face gets 0."""
+    faces = faces.long()
+    v0, v1, v2 = (vertices[faces[:, i]] for i in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0)
+    n = torch.zeros_like(vertices)
+    for i in range(3):
+        n.index_add_(0, faces[:, i], fn)
+    norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    return n / torch.where(norm == 0, 1.0, norm)
+
+
+def estimate_normals(points, k: int = 16):
+    """Per-point unit normals by local PCA: the eigenvector of the least
+    eigenvalue of each point's k-NN covariance (``torch.linalg.eigh``,
+    ascending), oriented away from the cloud's centroid. points (N, 3) or
+    (B, N, 3) -> the same shape. An eigenvector's sign, and the basis of a
+    repeated eigenvalue, are free: compare normals by |n . n'|."""
+    pts = points[None] if points.ndim == 2 else points
+    B, N, _ = pts.shape
+    _, idx = knn_points(pts, pts, k)          # (B, N, k), self included
+    nbrs = index_points(pts, idx.reshape(B, -1)).reshape(B, N, k, 3)
+    centered = nbrs - nbrs.mean(dim=2, keepdim=True)
+    cov = centered.transpose(-1, -2) @ centered
+    _, vecs = torch.linalg.eigh(cov)
+    n = vecs[..., :, 0]
+    outward = pts - pts.mean(dim=1, keepdim=True)
+    n = torch.where((n * outward).sum(-1, keepdim=True) < 0, -n, n)
+    return n[0] if points.ndim == 2 else n

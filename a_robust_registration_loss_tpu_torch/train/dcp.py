@@ -1,12 +1,17 @@
-"""Unsupervised DCP training and evaluation.
+"""Unsupervised DCP training and evaluation, and its CLI.
 
-Port of ``a_robust_registration_loss_tpu/train/dcp.py`` without its CLI:
-the DCP network trained with the intersected-line metric. ``train_step``
+Port of ``a_robust_registration_loss_tpu/train/dcp.py``: the DCP network
+trained with the intersected-line metric. ``train_step``
 (forward, ``dcp_train_loss``, autograd to every parameter, the guarded Adam
 step at lr 1e-6), ``pretrain_step`` (an optional supervised phase on the
 ground truth, ``gt_consistency_loss`` at lr 1e-4), ``train`` (both phases
-on ``train.harness.Trainer``, each with a fresh optimiser), and the
-evaluation path: ``eval_step``, ``artifact_fn`` and ``evaluate``.
+on ``train.harness.Trainer``, each with a fresh optimiser, ``Loader``s
+cached on the card through ``maybe_device_cache``), the evaluation path
+(``eval_step``, ``artifact_fn`` and ``evaluate``) and ``main``:
+
+    python -m a_robust_registration_loss_tpu_torch.train.dcp \
+        --data_path DIR --exp_dir EXP [--emb_nn pointnet|dgcnn] [--eval_only] \
+        [--device cuda|cpu] ...
 
 A batch is a dict of tensors in the dataset contract's DCP form (column
 convention R): ``points_src_sample`` / ``points_tar_sample`` (B, N, 3),
@@ -18,6 +23,7 @@ each launch one kernel per batch.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from a_robust_registration_loss_tpu_torch import _device
+from a_robust_registration_loss_tpu_torch.data import dataset as DS
 from a_robust_registration_loss_tpu_torch.data import objio
 from a_robust_registration_loss_tpu_torch.eval import metrics as EM
 from a_robust_registration_loss_tpu_torch.models.dcp import DCP, DCPConfig, reset_parameters
@@ -102,9 +109,13 @@ def train(cfg: DCPTrainConfig, train_loader, test_loader=None, init_from=None,
     Trainer under ``exp_dir/pretrain``), then the main phase with eval,
     checkpoints, metrics and artifacts under cfg.fit.exp_dir; each phase
     resumes from its latest checkpoint. Loaders are iterables of batch dicts
-    (tensors or arrays). Returns (model, opt_state, history) of the main
+    (tensors or arrays); a ``Loader`` goes to the card once through
+    ``maybe_device_cache``. Returns (model, opt_state, history) of the main
     phase."""
     dev = _device.resolve(device)
+    train_loader = DS.maybe_device_cache(train_loader, dev)
+    if test_loader is not None:
+        test_loader = DS.maybe_device_cache(test_loader, dev)
     model = init_model(cfg, cfg.fit.seed, dev)
     if init_from is not None:
         model.load_state_dict(init_from)
@@ -258,3 +269,100 @@ def evaluate(cfg: DCPTrainConfig, state_dict, test_loader, out_dir: str,
         for key in ("loss", "loss_intersection", "loss_chamfer", "rmse_ab",
                     "r_rmse_ab", "r_mae_ab", "t_rmse_ab")))
     return summary
+
+
+def main(argv=None):
+    """The JAX CLI's flags, ``--platform`` and ``--backend`` replaced by
+    ``--device``. Returns ``train``'s (model, opt_state, history), or the
+    ``Eval.json`` summary with ``--eval_only``."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--data_path", required=True)
+    ap.add_argument("--exp_dir", default="./exps/dcp")
+    ap.add_argument("--layout", default="indexed", choices=["indexed", "views"])
+    ap.add_argument("--n_pairs", type=int, default=4)
+    ap.add_argument("--epochs", type=int, default=100)
+    ap.add_argument("--batch_size", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-6)
+    ap.add_argument("--pretrain_epochs", type=int, default=0,
+                    help="supervised pretrain epochs on the GT loss before the "
+                         "unsupervised phase")
+    ap.add_argument("--pretrain_lr", type=float, default=1e-4)
+    ap.add_argument("--n_lines", type=int, default=15000)
+    ap.add_argument("--emb_nn", default="pointnet", choices=["pointnet", "dgcnn"])
+    ap.add_argument("--pointer", default="transformer", choices=["transformer", "identity"])
+    ap.add_argument("--head", default="svd", choices=["svd", "mlp"])
+    ap.add_argument("--emb_dims", type=int, default=512)
+    ap.add_argument("--n_blocks", type=int, default=1)
+    ap.add_argument("--n_heads", type=int, default=4)
+    ap.add_argument("--ff_dims", type=int, default=1024)
+    ap.add_argument("--cycle", action="store_true")
+    ap.add_argument("--train_count", type=int, default=None,
+                    help="train/test split: first N pairs train, rest test")
+    ap.add_argument("--eval_only", action="store_true",
+                    help="reload the latest checkpoint and run the test pass with its "
+                         "artifacts (metric battery, OBJ dumps, Eval.json)")
+    ap.add_argument("--init_from_ckpt", default=None,
+                    help="initialize params from ANOTHER experiment's checkpoints "
+                         "(fresh optimizer); --exp_dir's own checkpoints still take "
+                         "precedence when resuming")
+    ap.add_argument("--init_from_torch", default=None,
+                    help="a reference DCP .pth to start from")
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the card; fails without one) or cpu (the plain path)")
+    harness.add_unported_flags(ap)
+    args = ap.parse_args(argv)
+    harness.reject_unported(args, ap)
+    if args.init_from_ckpt and args.init_from_torch:
+        ap.error("--init_from_ckpt and --init_from_torch are exclusive")
+    dev = _device.resolve(args.device)
+
+    train_loader, test_loader = DS.generate_datasets(DS.DatasetConfig(
+        data_path=args.data_path, layout=args.layout, n=args.n_pairs,
+        train_batch=args.batch_size, dcp=True, seed=args.seed,
+        train_count=args.train_count), device=dev)
+    cfg = DCPTrainConfig(
+        lr=args.lr, pretrain_epochs=args.pretrain_epochs, pretrain_lr=args.pretrain_lr,
+        loss=L.LossConfig(n_lines=args.n_lines, cycle=args.cycle),
+        model=DCPConfig(emb_nn=args.emb_nn, pointer=args.pointer, head=args.head,
+                        emb_dims=args.emb_dims, n_blocks=args.n_blocks,
+                        n_heads=args.n_heads, ff_dims=args.ff_dims, cycle=args.cycle),
+        fit=harness.FitConfig(epochs=args.epochs, exp_dir=args.exp_dir,
+                              seed=args.seed, artifacts_every=10),
+    )
+    model = init_model(cfg, cfg.fit.seed, dev)
+    init_from = None
+    if args.init_from_torch:
+        from a_robust_registration_loss_tpu_torch.models import transplant
+
+        init_from = transplant.load_torch_state_dict(args.init_from_torch)
+        model.load_state_dict(init_from)
+    if args.init_from_ckpt:
+        from a_robust_registration_loss_tpu_torch.utils import load_params_from
+
+        init_from = load_params_from(
+            args.init_from_ckpt,
+            {"params": model.state_dict(),
+             "opt_state": harness.adam_init(model.parameters()), "epoch": 0})
+        if init_from is None:
+            ap.error(f"no checkpoint under {args.init_from_ckpt}")
+        model.load_state_dict(init_from)
+    if args.eval_only:
+        from a_robust_registration_loss_tpu_torch.utils import CheckPointManager
+
+        ckpt = CheckPointManager(os.path.join(args.exp_dir, "checkpoints"))
+        state, _ = ckpt.load({"params": model.state_dict(),
+                              "opt_state": harness.adam_init(model.parameters()),
+                              "epoch": 0})
+        epoch = 0
+        if state is not None:
+            model.load_state_dict(state["params"])
+            epoch = int(state["epoch"])
+        return evaluate(cfg, model.state_dict(), test_loader,
+                        os.path.join(args.exp_dir, "eval"), epoch=epoch, device=dev)
+    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev)
+
+
+if __name__ == "__main__":
+    main()

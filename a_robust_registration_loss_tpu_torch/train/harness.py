@@ -254,3 +254,28 @@ class Trainer:
                 + f" ({dt:.1f}s)")
         self.ckpt.wait_until_finished()  # commit any in-flight async save
         return model, opt_state, history
+
+
+def reject_unported(args, ap):
+    """The JAX CLI's flags whose paths are not ported: accepted at their
+    defaults only; any other value exits naming its ROADMAP.md Queue 1
+    item."""
+    for flag, default, item in (("dtype", "float32", "item 6 (mixed precision)"),
+                                ("dp", 0, "item 7 (data and line parallelism)"),
+                                ("sp", 1, "item 7 (data and line parallelism)"),
+                                ("debug", False, "item 8 (debugging aids)"),
+                                ("debug_nans", False, "item 8 (debugging aids)")):
+        if getattr(args, flag) != default:
+            ap.exit(2, f"{ap.prog}: --{flag} {getattr(args, flag)} is not ported: "
+                       f"ROADMAP.md Queue 1 {item}\n")
+
+
+def add_unported_flags(ap):
+    """The JAX CLI's ``--dtype``, ``--dp``, ``--sp``, ``--debug_nans`` and
+    ``--debug``, accepted only at their defaults (``reject_unported``)."""
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="only float32 is ported")
+    ap.add_argument("--dp", type=int, default=0, help="not ported: only 0")
+    ap.add_argument("--sp", type=int, default=1, help="not ported: only 1")
+    ap.add_argument("--debug_nans", action="store_true", help="not ported")
+    ap.add_argument("--debug", action="store_true", help="not ported")

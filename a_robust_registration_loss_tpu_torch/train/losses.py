@@ -1,6 +1,6 @@
-"""The trainers' metric glue and DCP's loss composition: per-batch line
-resampling, the per-sample metric of a batch, and DCP's unsupervised loss
-with its monitors.
+"""The trainers' metric glue and the DCP and FMR loss compositions:
+per-batch line resampling, the per-sample metric of a batch, and the
+unsupervised losses with their monitors.
 
 Port of ``a_robust_registration_loss_tpu/train/losses.py``: what the DCP,
 RPM-Net and FMR compositions share (``LossConfig``, ``batch_lines``,
@@ -9,8 +9,12 @@ composition (``dcp_transform``, ``dcp_cal_loss``, ``dcp_cycle_loss``,
 ``dcp_train_loss``): 15,000 lines resampled once per batch at radius 0.5 x
 the target box's diagonal, the per-sample metric / 5.0 summed then / batch
 size, optionally + 0.1 x the cycle loss, and a battery of monitors against
-the ground truth that are logged and never optimised. RPM-Net's and FMR's
-compositions need their models and are not here yet.
+the ground truth that are logged and never optimised; and FMR's
+(``fmr_train_loss``): 15,000 lines drawn once against the last IC
+iterate's source at radius scale 0.5, the metric on the last 3 iterates
+discounted 0.5^(maxiter - i - 1), / 5.0 per sample then / batch size,
+total = 0.01 x the AE loss + the intersection. RPM-Net's composition needs
+its model and is not here yet.
 
 Data dicts follow the dataset contract in DCP's form: ``R`` (B, 3, 3) and
 ``T`` (B, 3) in column convention, p' = R p + t, as the predicted
@@ -35,6 +39,7 @@ from a_robust_registration_loss_tpu_torch.eval import metrics as EM
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
+from a_robust_registration_loss_tpu_torch.se3 import se3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,3 +171,51 @@ def dcp_train_loss(data, R_ab, t_ab, R_ba, t_ba, cfg: LossConfig = LossConfig(),
         loss = loss + 0.1 * cyc
         monitors = dict(monitors, cycle_loss=cyc.detach())
     return loss, dict(monitors, loss_intersection=loss_inter.detach())
+
+
+# ---------------------------------------------------------------------------
+# FMR
+# ---------------------------------------------------------------------------
+
+def fmr_train_loss(g_series, loss_ende, data, cfg: LossConfig = LossConfig(),
+                   maxiter: int = 5, u4=None, generator=None):
+    """FMR's training total: the intersection metric on the last 3 IC
+    iterates with 0.5^(maxiter - i - 1) discounts, its lines drawn once
+    (``u4``, or from ``generator``) against the detached final iterate's
+    transformed source; total = 0.01 * loss_ende + 1.0 * intersection.
+    One resampler launch and 3 stage-1 launches for the batch.
+
+    g_series: (maxiter, B, 4, 4) un-normalised iterates (column convention,
+    ``models/fmr.py``); data in the FMR form (row-convention R, ``igt``).
+    Returns (total, parts): ``loss_ende``, ``loss_intersection``, and the
+    monitors ``loss_pp_wise`` and ``loss_chamfer``, all detached."""
+    src = data["points_src_sample"]
+    tar = data["points_tar_sample"]
+    src_neis_raw = _flat_neis(data["points_based_neighs_src"])
+    tar_neis = _flat_neis(data["points_based_neighs_tar"])
+    B = src.shape[0]
+
+    g_last = g_series[maxiter - 1].detach()
+    pred_src = se3.transform(g_last[:, None], src)
+    if u4 is None:
+        u4 = draw_uniforms(B, cfg.n_lines, src.device, generator)
+    lines = batch_lines(u4, data["tar_box"], data["centers"], cfg.n_lines,
+                        pred_src, tar, radius_scale=0.5)
+
+    loss_inter = 0.0
+    for i in range(max(0, maxiter - 3), maxiter):
+        gi = g_series[i]
+        pred_src = se3.transform(gi[:, None], src)
+        tp = (_metric_batch_rt(gi[:, :3, :3].transpose(-1, -2), gi[:, :3, 3], src_neis_raw,
+                               tar_neis, lines, cfg) / 5.0).sum()
+        loss_inter = loss_inter + tp * cfg.discount ** (maxiter - i - 1)
+    loss_inter = loss_inter / B
+
+    with torch.no_grad():
+        gt_src = se3.transform(se3.inverse(data["igt"])[:, None], src)
+        loss_pp_wise = (se3.transform(g_series[maxiter - 1][:, None], src) - gt_src).abs().mean()
+        loss_chamfer = G.chamfer_distance(pred_src.detach(), tar)
+
+    total = 0.01 * loss_ende + 1.0 * loss_inter
+    return total, dict(loss_ende=loss_ende.detach(), loss_intersection=loss_inter.detach(),
+                       loss_pp_wise=loss_pp_wise, loss_chamfer=loss_chamfer)

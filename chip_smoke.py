@@ -20,7 +20,16 @@ Drives the port's paths on the card:
   pairs of a 1,024-point noisy Fibonacci sphere from seed 0, 1,024 FPS + 3-NN
   neighbourhoods per cloud, 15,000 lines per sample;
 - the batched classical step and the demo at ``bench.py``'s widths, 4
-  pairs.
+  pairs;
+- the data layer, FMR and DCP's CLI on a dataset written from files: six
+  synthetic base clouds of 4,096 points from seed 0 (three bare noisy
+  Fibonacci ellipsoids, three triangulated latitude-longitude ellipsoids),
+  10 views each at the FMR convergence protocol's widths
+  (``benchmarks/train_convergence.py:37-52``: 1,024 points, F = 1,024,
+  45 degrees, 0.3), 48 training and 12 test pairs; FMR at ``FMRConfig``'s
+  full width (dim_k 1,024, 2.65 M parameters from seed 0; B = 4, 15,000
+  lines, train maxiter 5, eval maxiter 10, lr 1e-6), DCP's CLI at its
+  defaults (PointNet, transformer, SVD head, emb 512).
 
 Phases:
 
@@ -132,7 +141,37 @@ Phases:
    card skipping one NaN or inf among the 5.57 M gradient entries; then
    ``train_step``'s ms/iteration and a 5-iteration profile that counts host
    copies and waits (the SVD head waits), and ``guarded_update``'s kernels,
-   in a profile that fails on a host copy or wait.
+   in a profile that fails on a host copy or wait;
+14. the data layer: ``estimate_normals`` of 4,096 points timed on the card,
+   ``make_dataset.main`` writing the 60 pairs (views layout) with its wall
+   time and no kernel launched, the objio backend (``native``);
+   ``generate_datasets`` giving 12 training batches of 4 and 12 test
+   batches, and ``DeviceCache``'s batches equal to the streaming
+   ``Loader``'s bit for bit over two epochs;
+15. FMR through ``train.fmr.main`` on those files: 2 epochs (one batched
+   resampler and 3 stage-1 launches a training step, none an eval step),
+   the resume to 3 epochs and an uninterrupted 3-epoch run (every epoch's
+   loss within 1e-5), the checkpoints, ``metrics.jsonl``'s
+   ``time/epoch_seconds``; ``--eval_only`` (12 twist rows, a finite mean dm,
+   ``eval_summary.json``, no launch) and ``--eval_only --add_noise``; the
+   resampler and stage 1 on this path's own data against their plain
+   versions bit for bit; the card against the CPU's plain path on one batch
+   (the same lines: the solver's iterates within 5e-4; on the card's
+   iterates, the loss within 1e-4 relative, its gradient to the iterates
+   within 5e-4 relative L2 and equal stage-1 counts; end to end, the loss
+   within 1e-4 and the gradient to every parameter within 5e-4);
+   ``train_step`` fed from the ``DeviceCache`` with its ms/step and a
+   5-step profile that fails on a host-to-device copy (the waits of
+   ``svdvals`` are counted, and the solver's two library calls profiled
+   alone); a NaN batch skipped with the state unchanged; a degenerate batch
+   (both clouds on one line: the Jacobian is the target's) giving
+   n_singular = B and g = I;
+16. DCP's CLI on the same files: 1 epoch (one resampler and one stage-1
+   launch a training step and an eval batch), ``--eval_only`` writing
+   ``Eval.json``, ``--init_from_ckpt`` from that run (the parameters before
+   the first step equal to the loaded ones) and ``--init_from_torch`` on a
+   ``.pth`` of the first model's ``state_dict`` under a ``module.`` prefix
+   inside ``{"state_dict": ...}`` with an integer beside it.
 
 Each phase's wall time is printed as it ends and all of them together
 before the kernels line. Every phase that drives a path sets the launch
@@ -652,6 +691,7 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
             by_name[e.name] = (tot + e.time_range.elapsed_us(), calls + 1)
     copies = sum(c for k, (_, c) in by_name.items()
                  if k.startswith(("Memcpy HtoD", "Memcpy DtoH")))
+    htod = sum(c for k, (_, c) in by_name.items() if k.startswith("Memcpy HtoD"))
     kernels = sum(c for k, (_, c) in by_name.items()
                   if not k.startswith(("Memcpy", "Memset")))
     n = n * units
@@ -663,7 +703,8 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
     else:
         print(f"profile over {n} {plural}: {kernels / n:.1f} kernels/{what}, "
               f"device time {busy:.4f} ms/{what} = {busy / ms_per:.1%} of "
-              f"{ms_per:.4f} ms/{what}; host<->device copies {copies}; sync calls "
+              f"{ms_per:.4f} ms/{what}; host<->device copies {copies} ({htod} to the "
+              f"device); sync calls "
               f"{syncs}", flush=True)
         for name, (tot, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
             print(f"  {tot / 1e3 / n:9.4f} ms/{what} {calls / n:6.1f}/{what}  "
@@ -672,6 +713,7 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
         check(copies == 0, f"{copies} host<->device copies in {n} {plural}")
         check(not any(syncs.values()), f"the {what} waits for the device: {syncs}")
     return dict(kernels=kernels / n, busy_ms=busy, busy_share=busy / ms_per, copies=copies,
+                htod=htod,
                 syncs=sum(syncs.values())) if by_name else None
 
 
@@ -1636,6 +1678,428 @@ def dcp_train_phase(torch, mods, cfg3, batches):
     return launches
 
 
+N_BASE5, VIEWS5, NP5, TRAIN5, B5, L5 = 4096, 10, 1024, 48, 4, 15000  # data, FMR, DCP CLI
+MAXITER5 = 5  # FMR's train maxiter
+FMR_CLI, DCP_CLI = [], []  # more flags for the CLIs (none: their full-width defaults)
+
+
+def base_clouds(objio, out_dir):
+    """Six base clouds of N_BASE5 points from seed 0, as OBJ files: three
+    bare Fibonacci ellipsoids with 0.005 noise (their normals come from PCA)
+    and three 64 x 64 latitude-longitude triangulated ellipsoids with faces
+    (their normals come from the faces)."""
+    rng = np.random.default_rng(0)
+    axes = [(1.0, 0.7, 0.5), (0.9, 0.8, 0.4), (0.6, 1.0, 0.7)]
+    i = np.arange(N_BASE5) + 0.5
+    phi = np.arccos(1 - 2 * i / N_BASE5)
+    th = np.pi * (1 + 5**0.5) * i
+    fib = np.stack([np.sin(phi) * np.cos(th), np.sin(phi) * np.sin(th), np.cos(phi)], -1)
+    nu = nv = int(N_BASE5**0.5)
+    U, W = np.meshgrid(np.linspace(0.05, np.pi - 0.05, nu),
+                       np.linspace(0, 2 * np.pi, nv, endpoint=False), indexing="ij")
+    sphere = np.stack([np.sin(U) * np.cos(W), np.sin(U) * np.sin(W), np.cos(U)], -1)
+    faces = []
+    for a in range(nu - 1):
+        for b in range(nv):
+            i0, i1 = a * nv + b, a * nv + (b + 1) % nv
+            faces += [[i0, i0 + nv, i1], [i1, i0 + nv, i1 + nv]]
+    for k, ax in enumerate(axes):
+        bare = fib * ax + rng.standard_normal(fib.shape) * 0.005
+        objio.write_obj(os.path.join(out_dir, f"bare_{k}.obj"), bare.astype(np.float32))
+        objio.write_obj(os.path.join(out_dir, f"mesh_{k}.obj"),
+                        (sphere.reshape(-1, 3) * ax[::-1]).astype(np.float32), np.array(faces))
+
+
+def data_phase(torch, mods, tmp):
+    """The data layer on the card (module docstring, phase 14): the six base
+    clouds -> ``make_dataset.main`` at the FMR convergence protocol's
+    widths (views layout, 60 pairs) -> ``generate_datasets``' 12 + 12
+    batches -> ``DeviceCache`` batches equal to the streaming ``Loader``'s
+    bit for bit over two epochs. Returns the dataset's directory."""
+    import contextlib
+    import io
+
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.data import make_dataset as MK
+    from a_robust_registration_loss_tpu_torch.data import objio
+
+    G, M, IK, RS, PB = mods[:5]
+    base, data = os.path.join(tmp, "base"), os.path.join(tmp, "views")
+    os.makedirs(base)
+    base_clouds(objio, base)
+    v, _ = objio.read_obj(os.path.join(base, "bare_0.obj"))
+    pts = torch.tensor(v, device=DEV)
+    G.estimate_normals(pts)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G.estimate_normals(pts)
+    torch.cuda.synchronize()
+    ms_normals = 1e3 * (time.perf_counter() - t0)
+    counts(IK, RS, PB, reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        n = MK.main(["--sources", os.path.join(base, "*.obj"), "--out", data,
+                     "--n_views", str(VIEWS5), "--num_points", str(NP5),
+                     "--num_sample", str(NP5), "--rot_mag", "45", "--trans_mag", "0.3",
+                     "--seed", "0", "--device", DEV])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_counts(counts(IK, RS, PB), {}, 1, "make_dataset")
+    check(n == 6 * VIEWS5, f"make_dataset wrote {n} pairs")
+    check(objio.backend() == "native", f"objio backend {objio.backend()}")
+    print(f"data: make_dataset.main, 6 base clouds of {N_BASE5} points x {VIEWS5} views at "
+          f"{NP5} points, F={NP5}: {n} pairs in {dt:.2f} s ({log.getvalue().splitlines()[-1]}); "
+          f"objio backend {objio.backend()}; estimate_normals of {N_BASE5} points (k-NN, "
+          f"eigh of {N_BASE5} 3x3 covariances) {ms_normals:.2f} ms", flush=True)
+
+    train, test = DS.generate_datasets(DS.DatasetConfig(
+        data_path=data, layout="views", fmr=True, train_count=TRAIN5, train_batch=B5),
+        device=DEV)
+    check(len(train) == TRAIN5 // B5 and len(test) == 6 * VIEWS5 - TRAIN5,
+          f"{len(train)} training and {len(test)} test batches")
+    t0 = time.perf_counter()
+    for loader in (train, test):
+        cache = DS.DeviceCache(loader, DEV)
+        for epoch in range(2):
+            cache.set_epoch(epoch)
+            loader.set_epoch(epoch)
+            got, want = list(cache), list(loader)
+            check(len(got) == len(want) == len(loader), "the cache's batch count")
+            for a, b in zip(got, want):
+                check(a.keys() == b.keys() and all(
+                    a[k].device.type == DEV and torch.equal(a[k].cpu(), torch.from_numpy(b[k]))
+                    for k in b), "a DeviceCache batch differs from the Loader's")
+    print(f"data: generate_datasets gives {len(train)} training batches of {B5} and "
+          f"{len(test)} test batches; DeviceCache batches equal the Loader's bit for bit over "
+          f"2 epochs ({time.perf_counter() - t0:.2f} s)", flush=True)
+    return data
+
+
+class _Recorder:
+    """Wraps ``LS.batch_lines`` and ``M.rigid_slots`` while it is entered:
+    keeps the lines each call made (or hands ``lines`` out in their place)
+    and the stage-1 counts of every rigid metric call."""
+
+    def __init__(self, LS, M, lines=None):
+        self.LS, self.M, self.given = LS, M, lines
+        self.lines, self.counts = [], []
+
+    def __enter__(self):
+        self.real = self.LS.batch_lines, self.M.rigid_slots
+
+        def batch_lines(*a, **k):
+            self.lines.append(self.real[0](*a, **k) if self.given is None else self.given)
+            return self.lines[-1]
+
+        def rigid_slots(*a, **k):
+            out = self.real[1](*a, **k)
+            self.counts.append(np.concatenate([c.cpu().numpy() for c in out[2:]], axis=-1))
+            return out
+
+        self.LS.batch_lines, self.M.rigid_slots = batch_lines, rigid_slots
+        return self
+
+    def __exit__(self, *exc):
+        self.LS.batch_lines, self.M.rigid_slots = self.real
+
+
+def fmr_parity(torch, mods, cfg, model, batch, gen):
+    """The card's kernel path against the CPU's plain path on one batch at
+    full width: the solver's iterates; then on the card's iterates and
+    lines, the loss, its gradient to the iterates and the stage-1 counts of
+    each of the 3 metric calls; then end to end (each side its own solve,
+    the card's lines) the loss and the gradient to every parameter."""
+    from a_robust_registration_loss_tpu_torch.models.fmr import SolveRegistration
+    from a_robust_registration_loss_tpu_torch.train import fmr as TF
+
+    G, M, IK, RS, PB, LS = mods[:6]
+    cpu_model = SolveRegistration(cfg.model)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    u4 = LS.draw_uniforms(B5, L5, DEV, gen)
+    t0 = time.perf_counter()
+    out, lines = {}, None
+    for dev, m, b in ((DEV, model, batch), ("cpu", cpu_model, cpu_batch)):
+        o = TF.forward(m, b, MAXITER5)
+        with _Recorder(LS, M, None if lines is None else lines.cpu()) as rec:
+            total, _ = LS.fmr_train_loss(o["g_series"], o["loss_ende"], b, cfg.loss, MAXITER5,
+                                         u4=u4.to(dev))
+        lines = rec.lines[0] if lines is None else lines
+        grads = torch.autograd.grad(total, list(m.parameters()))
+        out[dev] = dict(g=o["g_series"].detach().cpu(), total=float(total.detach()),
+                        grad=torch.cat([g.reshape(-1) for g in grads]).cpu().double(),
+                        n_singular=int(o["n_singular"]))
+    g_err = float((out[DEV]["g"] - out["cpu"]["g"]).abs().max())
+    e2e_loss = abs(out[DEV]["total"] - out["cpu"]["total"]) / abs(out["cpu"]["total"])
+    gk, gc = out[DEV]["grad"], out["cpu"]["grad"]
+    e2e_grad = float((gk - gc).norm() / gc.norm())
+
+    # the loss on the card's iterates and lines, both sides
+    same = {}
+    gs = out[DEV]["g"]
+    ende = torch.zeros(())
+    for dev, b in ((DEV, batch), ("cpu", cpu_batch)):
+        g_req = gs.to(dev).clone().requires_grad_(True)
+        with _Recorder(LS, M, lines.to(dev)) as rec:
+            total, parts = LS.fmr_train_loss(g_req, ende.to(dev), b, cfg.loss, MAXITER5,
+                                             u4=u4.to(dev))
+        (dg,) = torch.autograd.grad(total, g_req)
+        same[dev] = (float(total.detach()), dg.cpu().double(), rec.counts,
+                     float(parts["loss_intersection"]))
+    (lk, dgk, ck, ik), (lc, dgc, cc, _) = same[DEV], same["cpu"]
+    loss_err = abs(lk - lc) / abs(lc)
+    grad_err = float((dgk - dgc).norm() / dgc.norm())
+    counts_equal = len(ck) == len(cc) == 3 and all(np.array_equal(a, b) for a, b in zip(ck, cc))
+    print(f"FMR on the card vs the CPU's plain path (B={B5} N={NP5} dim_k "
+          f"{cfg.model.dim_k} L={L5}, {time.perf_counter() - t0:.1f} s): the solver's iterates "
+          f"within {g_err:.3g}; on the card's iterates and lines, loss {lk:.7f} vs {lc:.7f} "
+          f"(rel {loss_err:.3g}), gradient to the iterates rel L2 {grad_err:.3g}, stage-1 counts "
+          f"of the 3 metric calls equal: {counts_equal} ({[int(c.sum()) for c in ck]} hits); "
+          f"end to end (each side its own solve, the same lines) loss rel {e2e_loss:.3g}, "
+          f"gradient to the {gk.numel()} parameter values rel L2 {e2e_grad:.3g}; n_singular "
+          f"{out[DEV]['n_singular']} / {out['cpu']['n_singular']}", flush=True)
+    check(ik > 0, "no usable line in the FMR metric")
+    check(loss_err <= 1e-4, f"FMR loss on the same iterates: {lk} vs the CPU's {lc}")
+    check(grad_err <= 5e-4, f"FMR loss gradient to the iterates: rel L2 {grad_err}")
+    check(counts_equal, "FMR parity: stage-1 counts differ from the CPU's")
+    # through the finite-difference Jacobian, which amplifies rounding about
+    # 1 / dt = 100 times: the iterates to tests/test_torch_fmr.py's bar
+    check(g_err <= 5e-4 and e2e_loss <= 1e-4 and e2e_grad <= 5e-4,
+          f"FMR end to end: iterates {g_err}, loss {e2e_loss}, gradient {e2e_grad}")
+
+
+def fmr_phase(torch, mods, data, tmp):
+    """FMR trained from files at full width (module docstring, phase 15).
+    Returns the launches of (the first training run, its eval-only
+    run)."""
+    import dataclasses
+
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.se3 import se3
+    from a_robust_registration_loss_tpu_torch.train import fmr as TF
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    G, M, IK, RS, PB, LS = mods[:6]
+    args = ["--data_path", data, "--layout", "views", "--train_count", str(TRAIN5),
+            "--batch_size", str(B5), "--n_lines", str(L5), "--seed", "0", "--device",
+            DEV] + FMR_CLI
+    run, full = os.path.join(tmp, "fmr_run"), os.path.join(tmp, "fmr_full")
+    steps = TRAIN5 // B5
+    torch.cuda.synchronize()
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    model, state, hist = TF.main(args + ["--exp_dir", run, "--epochs", "2"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts(IK, RS, PB)
+    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 3}, 2 * steps,
+                 "FMR train (2 epochs of 12 steps, 12 eval batches each)")
+    secs = _epoch_seconds(run)
+    print(f"FMR train through train.fmr.main: 2 epochs of {steps} steps of B={B5} N={NP5} "
+          f"L={L5} and {len(hist) and 6 * VIEWS5 - TRAIN5} eval pairs at maxiter 10: {dt:.2f} s "
+          f"(CLI, data and set-up included); time/epoch_seconds {secs}; train loss "
+          f"{[h['loss'] for h in hist]}; test dm {[h['test_dm'] for h in hist]}; n_singular "
+          f"{[h['n_singular'] for h in hist]}; launches {launches}", flush=True)
+    check(len(secs) == 2, "time/epoch_seconds is not in metrics.jsonl")
+    _, _, resumed = TF.main(args + ["--exp_dir", run, "--epochs", "3"])
+    _, _, uninterrupted = TF.main(args + ["--exp_dir", full, "--epochs", "3"])
+    errs = [abs(h["loss"] - f["loss"]) / abs(f["loss"])
+            for h, f in zip(hist + resumed, uninterrupted)]
+    print(f"FMR resume: epoch {[h['epoch'] for h in resumed]} train loss "
+          f"{resumed[0]['loss']:.9f}, uninterrupted {uninterrupted[2]['loss']:.9f}; train loss "
+          f"rel err against the uninterrupted run by epoch {[f'{e:.3g}' for e in errs]}",
+          flush=True)
+    check([h["epoch"] for h in resumed] == [2], "the FMR resume did not run epoch 2 alone")
+    check(len(errs) == 3 and max(errs) <= 1e-5, f"FMR train loss vs uninterrupted: {errs}")
+    for h in hist + resumed + uninterrupted:
+        check(all(np.isfinite(v) for v in h.values()), f"an FMR metric is not finite: {h}")
+        check(h["nonfinite_steps"] == 0.0, f"an FMR step was skipped: {h}")
+    check(sorted(os.listdir(os.path.join(run, "checkpoints"))) == [
+        "checkpoints.json", "ckpt-0", "ckpt-1", "ckpt-2", "ckpt-best"], "FMR checkpoints")
+    check(len(_epoch_seconds(run)) == 3, "FMR metrics.jsonl after the resume")
+
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    mean_dm = TF.main(args + ["--exp_dir", run, "--eval_only"])
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    eval_launches = counts(IK, RS, PB)
+    check_counts(eval_launches, {}, 1, "FMR --eval_only")
+    rows = np.loadtxt(os.path.join(run, "eval", "eval_twists.csv"), delimiter=",",
+                      skiprows=1, ndmin=2)
+    with open(os.path.join(run, "eval", "eval_summary.json")) as f:
+        summary = json.load(f)
+    check(rows.shape == (6 * VIEWS5 - TRAIN5, 12) and np.isfinite(rows).all(),
+          f"eval_twists.csv {rows.shape}")
+    check(np.isfinite(mean_dm) and summary == {"mean_dm": mean_dm, "n": len(rows)},
+          f"eval_summary.json {summary}")
+    noisy = TF.main(args + ["--exp_dir", run, "--eval_only", "--add_noise"])
+    check(np.isfinite(noisy), f"--add_noise mean dm {noisy}")
+    print(f"FMR --eval_only: {len(rows)} twist rows, mean dm {mean_dm:.6f} ({dt_eval:.2f} s, "
+          f"CLI included; no kernel launched); with --add_noise {noisy:.6f}", flush=True)
+
+    # the kernels on this path's own data, and the card against the CPU
+    cfg = TF.FMRTrainConfig(loss=LS.LossConfig(n_lines=L5), model=model.cfg)
+    train, _ = DS.generate_datasets(DS.DatasetConfig(
+        data_path=data, layout="views", fmr=True, train_count=TRAIN5, train_batch=B5),
+        device=DEV)
+    cache = DS.DeviceCache(train, DEV)
+    batch = next(iter(cache))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8)
+    with torch.no_grad():
+        out = TF.forward(model, batch, MAXITER5)
+        src, tar = batch["points_src_sample"], batch["points_tar_sample"]
+        pred = se3.transform(out["g_series"][-1][:, None], src)
+        box, c = batch["tar_box"], batch["centers"]
+        r = 0.5 * torch.linalg.vector_norm(box[:, 0] - box[:, -1], dim=-1)
+        u4 = LS.draw_uniforms(B5, L5, DEV, gen)
+        fv = RS.prep_faces(G.bbox_face_vertices(pred), G.bbox_face_vertices(tar))
+        _, h1, h2, acc, n = resample_check(torch, RS, u4, r, c, fv, "FMR")
+        lines = LS.batch_lines(u4, box, c, L5, pred, tar, 0.5)
+        n1, n2 = (LS._flat_neis(batch[k]) for k in
+                  ("points_based_neighs_src", "points_based_neighs_tar"))
+        hits = []
+        for i in range(MAXITER5 - 3, MAXITER5):
+            gi = out["g_series"][i]
+            R_row, t = gi[:, :3, :3].transpose(-1, -2), gi[:, :3, 3]
+            n1_t = (n1.reshape(B5, -1, 3) @ R_row + t[:, None, :]).reshape(n1.shape)
+            deltas = (M.neighborhood_delta(n1_t), M.neighborhood_delta(n2))
+            got = IK.stage1((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+            ref = IK.stage1_reference((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+            for a, b, what in zip(got, ref, ("count", "slot_idx", "d2", "recon", "slot_pts")):
+                check((a is None and b is None) or torch.equal(a, b),
+                      f"stage1 at FMR's iterate {i}: {what} differs from the plain version")
+            hits.append(int(got[0].sum()))
+    print(f"FMR's kernels on its own data: the resampler (B={B5} C={10 * L5}; mesh 1 hit by "
+          f"{h1 / n:.5f}, mesh 2 by {h2 / n:.5f}, accepted {acc / n:.5f}) and stage 1 on each of "
+          f"the last 3 iterates (B={B5} F={n1.shape[1]} L={L5}, hits {hits}) equal their plain "
+          "versions bit for bit", flush=True)
+    fmr_parity(torch, mods, cfg, model, batch, gen)
+
+    # train_step fed from the cache: ms/step, then a 5-step profile
+    st = {"s": H.adam_init(model.parameters()), "it": iter(cache)}
+    step_cfg = dataclasses.replace(cfg, fit=H.FitConfig())
+
+    def one():
+        batch = next(st["it"], None)
+        if batch is None:
+            st["it"] = iter(cache)
+            batch = next(st["it"])
+        st["s"], st["m"] = TF.train_step(model, st["s"], batch, step_cfg, generator=gen)
+
+    for _ in range(WARMUP2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAD_ITERS3):
+        one()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / GRAD_ITERS3
+    print(f"FMR train_step fed from the DeviceCache: {ms:.4f} ms/step over {GRAD_ITERS3}; "
+          f"n_singular of the last batch {float(st['m']['n_singular'])}", flush=True)
+    st["it"] = iter(cache)  # the epoch's index copy before the window
+    prof = profile_phase(torch, one, PROFILED3, "step", ms, strict=False)
+    check(prof is not None and prof["htod"] == 0,
+          f"FMR steps fed from the cache copied to the device: {prof}")
+    # the solver's two library calls on its (B, 6, 6) matrices, alone: which
+    # of the step's host waits are theirs
+    H6 = torch.eye(6, device=DEV).expand(B5, 6, 6) + 0.1
+    for name, fn in (("svdvals", torch.linalg.svdvals), ("inv_ex", torch.linalg.inv_ex)):
+        print(f"FMR solver's {name} on (B, 6, 6), alone:", flush=True)
+        profile_phase(torch, lambda: fn(H6), PROFILED3, "call", cuda_ms(torch, lambda: fn(H6), 5),
+                      strict=False)
+
+    # a NaN batch is skipped; a degenerate one freezes g at the identity
+    poisoned = dict(batch)
+    poisoned["points_src_sample"] = batch["points_src_sample"].clone()
+    poisoned["points_src_sample"][0, 0, 0] = float("nan")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    after, m = TF.train_step(model, st["s"], poisoned, step_cfg, generator=gen)
+    check(float(m["nonfinite_steps"]) == 1.0, "the FMR NaN batch was not skipped")
+    check(all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
+          "the FMR NaN batch changed the model")
+    check(all(torch.equal(a, b) for a, b in zip(after, st["s"])),
+          "the FMR NaN batch changed the optimiser state")
+    # the Jacobian is the target's: with every point of both clouds on one
+    # line, rotation about it moves no point and H is singular
+    line = torch.zeros((B5, NP5, 3), device=DEV)
+    line[..., 0] = torch.linspace(-0.5, 0.5, NP5, device=DEV)
+    with torch.no_grad():
+        o = model(line, line, maxiter=MAXITER5)
+    eye = torch.eye(4, device=DEV).expand(B5, 4, 4)
+    check(int(o["n_singular"]) == B5 and torch.equal(o["g"], eye),
+          f"degenerate batch: n_singular {int(o['n_singular'])}, g {o['g'][0]}")
+    print(f"FMR NaN batch skipped, model and optimiser state unchanged bit for bit; a "
+          f"degenerate batch (both clouds on one line) gives n_singular = {B5} and g = I",
+          flush=True)
+    return launches, eval_launches
+
+
+def dcp_cli_phase(torch, mods, data, tmp):
+    """DCP's CLI on the data phase's files at its defaults (module
+    docstring, phase 16). Returns the launches of (its training run, its
+    eval-only run)."""
+    from a_robust_registration_loss_tpu_torch.train import dcp as TD
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+    from a_robust_registration_loss_tpu_torch.utils import load_params_from
+
+    G, M, IK, RS, PB = mods[:5]
+    args = ["--data_path", data, "--layout", "views", "--train_count", str(TRAIN5),
+            "--batch_size", str(B5), "--n_lines", str(L5), "--seed", "0", "--device",
+            DEV] + DCP_CLI
+    run = os.path.join(tmp, "dcp_run")
+    n_test = 6 * VIEWS5 - TRAIN5
+    torch.cuda.synchronize()
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    model, _, hist = TD.main(args + ["--exp_dir", run, "--epochs", "1"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts(IK, RS, PB)
+    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1},
+                 TRAIN5 // B5 + n_test, "DCP CLI train (12 steps, 12 eval batches)")
+    check(all(np.isfinite(v) for v in hist[0].values()), f"a DCP CLI metric: {hist}")
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    summary = TD.main(args + ["--exp_dir", run, "--eval_only"])
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    eval_launches = counts(IK, RS, PB)
+    check_counts(eval_launches, {"resample_batched": 1, "stage1_pair_pts": 1}, n_test,
+                 "DCP CLI --eval_only")
+    with open(os.path.join(run, "eval", "Eval.json")) as f:
+        check(json.load(f) == summary, "Eval.json differs from the returned summary")
+    check(all(np.isfinite(v) for v in summary.values()), f"Eval.json {summary}")
+    print(f"DCP CLI (pointnet, transformer, svd, emb 512, L={L5}): 1 epoch of "
+          f"{TRAIN5 // B5} steps and {n_test} eval batches {dt:.2f} s (CLI, data and set-up "
+          f"included), time/epoch_seconds {_epoch_seconds(run)}, train loss "
+          f"{hist[0]['loss']:.6f}; --eval_only {dt_eval:.2f} s, Eval.json loss_intersection "
+          f"{summary['loss_intersection']:.6f}, r_rmse_ab {summary['r_rmse_ab']:.4f}; launches "
+          f"{launches} and {eval_launches}", flush=True)
+
+    template = {"params": model.state_dict(), "opt_state": H.adam_init(model.parameters()),
+                "epoch": 0}
+    loaded = load_params_from(run, template)
+    start, _, none = TD.main(args + ["--exp_dir", os.path.join(tmp, "dcp_ckpt"),
+                                     "--init_from_ckpt", run, "--epochs", "0"])
+    same = lambda a, b: a.keys() == b.keys() and all(torch.equal(v, b[k]) for k, v in a.items())
+    check(none == [] and same(start.state_dict(), loaded),
+          "--init_from_ckpt: the parameters before the first step differ from the loaded ones")
+    pth = os.path.join(tmp, "dcp_ref.pth")
+    first = model.state_dict()
+    torch.save({"state_dict": {f"module.{k}": v for k, v in first.items()}, "epoch": 1}, pth)
+    start, _, _ = TD.main(args + ["--exp_dir", os.path.join(tmp, "dcp_torch"),
+                                  "--init_from_torch", pth, "--epochs", "0"])
+    check(same(start.state_dict(), first),
+          "--init_from_torch: the parameters differ from the saved state_dict's")
+    print("DCP CLI --init_from_ckpt: the parameters before the first step equal the loaded "
+          "best checkpoint's; --init_from_torch (module. prefix, {'state_dict': ...}, an int "
+          "entry beside it): equal to the saved model's", flush=True)
+    return launches, eval_launches
+
+
 def _epoch_seconds(exp_dir):
     """The ``time/epoch_seconds`` records of a run's metrics log."""
     with open(os.path.join(exp_dir, "logs", "metrics.jsonl")) as f:
@@ -1644,6 +2108,8 @@ def _epoch_seconds(exp_dir):
 
 
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1774,11 +2240,18 @@ def main():
                             RS, PB, LN, single_its)
     demo_launches = timed(seconds, "demo", demo_phase, torch, demo, IK, RS, PB)
     dcp_train = timed(seconds, "dcp_train", dcp_train_phase, torch, mods3, cfg3, batches3)
+    with tempfile.TemporaryDirectory() as tmp:
+        data5 = timed(seconds, "data", data_phase, torch, mods3, tmp)
+        fmr_train, fmr_eval = timed(seconds, "fmr", fmr_phase, torch, mods3, data5, tmp)
+        dcp_cli, dcp_cli_eval = timed(seconds, "dcp_cli", dcp_cli_phase, torch, mods3, data5,
+                                      tmp)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
              "dcp_graph_gather": dcp["graph_gather"], "classical_batch": classical_batch,
-             "demo": demo_launches, "dcp_train": dcp_train}
+             "demo": demo_launches, "dcp_train": dcp_train, "fmr_train": fmr_train,
+             "fmr_eval_only": fmr_eval, "dcp_cli_train": dcp_cli,
+             "dcp_cli_eval_only": dcp_cli_eval}
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -30,7 +30,11 @@ multiple of any chunk; stage 1's split into face segments exact at ragged F
 and L, F below the segment count, kmax = 1 and a line whose first segment
 alone holds more than kmax hits; DCP's
 evaluation on the card with one resampler and one stage-1 launch per batch
-and the CPU path's R_ab and t_ab within 1e-4.
+and the CPU path's R_ab and t_ab within 1e-4; FMR's training step with one
+batched resampler and three stage-1 launches, on the same iterates and
+lines the loss within 1e-4 relative and its gradient to the iterates
+within 5e-4 relative L2 of the CPU's plain path; the dataset cached on the
+card (and prefetched to it) equal to the streaming loader bit for bit.
 """
 
 import numpy as np
@@ -588,3 +592,85 @@ def test_dcp_evaluate_on_card(cuda_device, tmp_path):
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert float(loss) > 0 and all(bool(torch.isfinite(x).all()) for x in grads)
     assert sum(float(x.abs().sum()) for x in grads) > 0
+
+
+def _fmr_batch(B, N, F, seed):
+    """``_dcp_batch`` in the FMR form: row-convention R and T, igt."""
+    b = _dcp_batch(B, N, F, seed)
+    R = b["R"].transpose(-1, -2).contiguous()
+    igt = torch.eye(4).repeat(B, 1, 1)
+    igt[:, :3, :3] = R
+    igt[:, :3, 3] = -torch.einsum("bij,bj->bi", R, b["T"])
+    b.update(R=R, R_inv=R.transpose(-1, -2).contiguous(), igt=igt)
+    return b
+
+
+@pytest.mark.cuda
+def test_fmr_kernel_path_on_card(cuda_device):
+    """FMR's training step on the card launches one batched resampler and
+    three stage-1 kernels; on the same iterates and lines the card's loss is
+    within 1e-4 relative of the CPU's plain path, its gradient to the
+    iterates within 5e-4 relative L2, and the solver's iterates within
+    5e-3."""
+    from a_robust_registration_loss_tpu_torch.models.fmr import FMRConfig, SolveRegistration
+    from a_robust_registration_loss_tpu_torch.train import fmr as TF
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    cfg = TF.FMRTrainConfig(loss=LS.LossConfig(n_lines=2000),
+                            model=FMRConfig(dim_k=128, num_points=256))
+    model = TF.init_model(cfg, 0, device=cuda_device)
+    batch = {k: v.to(cuda_device) for k, v in _fmr_batch(2, 256, 128, 60).items()}
+    pts = IK.instantiation(2, False, False, True)
+    before = (RS.launches["batched"], IK.launches[pts], sum(IK.launches.values()))
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    state, m = TF.train_step(model, H.adam_init(model.parameters()), batch, cfg, generator=g)
+    after = (RS.launches["batched"], IK.launches[pts], sum(IK.launches.values()))
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 3, 3)
+    assert float(m["nonfinite_steps"]) == 0.0 and float(m["loss_intersection"]) > 0
+
+    cpu = SolveRegistration(cfg.model)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        gk = TF.forward(model, batch, 5)["g_series"]
+        gc = TF.forward(cpu, {k: v.cpu() for k, v in batch.items()}, 5)["g_series"]
+    assert float((gk.cpu() - gc).abs().max()) <= 5e-3
+    u4 = LS.draw_uniforms(2, 2000, cuda_device, g)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        gs = gk.to(dev).clone().requires_grad_(True)
+        total, _ = LS.fmr_train_loss(gs, torch.zeros((), device=dev), b, cfg.loss, 5,
+                                     u4=u4.to(dev))
+        (dg,) = torch.autograd.grad(total, gs)
+        out[str(dev)] = (float(total), dg.cpu().double())
+    (lk, dk), (lc, dc) = out[str(cuda_device)], out["cpu"]
+    assert abs(lk - lc) <= 1e-4 * abs(lc)
+    assert float((dk - dc).norm() / dc.norm()) <= 5e-4
+
+
+@pytest.mark.cuda
+def test_device_cache_on_card(cuda_device, tmp_path):
+    """The dataset cached on the card: batches already there, equal to the
+    streaming Loader's bit for bit, and a prefetched batch equal too."""
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.data import make_dataset as MK
+    from a_robust_registration_loss_tpu_torch.data import objio
+
+    objio.write_obj(str(tmp_path / "base.obj"), _cloud(400, 1))
+    MK.build([str(tmp_path / "base.obj")], str(tmp_path / "d"), n_views=4, num_points=128,
+             rot_mag=30.0, trans_mag=0.2, num_sample=64, indexed=True, log=lambda *a: None)
+    train, _ = DS.generate_datasets(DS.DatasetConfig(data_path=str(tmp_path / "d"), n=4,
+                                                     train_batch=2, fmr=True))
+    cache = DS.maybe_device_cache(train, device=cuda_device)
+    assert isinstance(cache, DS.DeviceCache)
+    pre = DS.PrefetchLoader(train, device=cuda_device)
+    for epoch in range(2):
+        cache.set_epoch(epoch)
+        train.set_epoch(epoch)
+        want = list(train)
+        pre.set_epoch(epoch)
+        for got in (list(cache), list(pre)):
+            assert len(got) == len(want) == 2
+            for a, b in zip(got, want):
+                assert all(a[k].is_cuda and torch.equal(a[k].cpu(), torch.from_numpy(b[k]))
+                           for k in b)

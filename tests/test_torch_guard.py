@@ -64,6 +64,14 @@ def test_importing_the_port_loads_no_jax():
             "import a_robust_registration_loss_tpu_torch.utils\n"
             "import a_robust_registration_loss_tpu_torch.utils.viz\n"
             "import a_robust_registration_loss_tpu_torch.train.harness\n"
+            "import a_robust_registration_loss_tpu_torch.train.fmr\n"
+            "import a_robust_registration_loss_tpu_torch.models.fmr\n"
+            "import a_robust_registration_loss_tpu_torch.data.dataset\n"
+            "import a_robust_registration_loss_tpu_torch.data.transforms\n"
+            "import a_robust_registration_loss_tpu_torch.data.make_dataset\n"
+            "import a_robust_registration_loss_tpu_torch.data.precompute\n"
+            "import a_robust_registration_loss_tpu_torch.data.depth\n"
+            "import a_robust_registration_loss_tpu_torch.native.objio_native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'flax', 'a_robust_registration_loss_tpu')]\n"
             "assert not bad, bad\n")
@@ -107,6 +115,61 @@ def test_trainers_refuse_a_missing_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         H.Trainer(lambda *a: None, None, fit)
     assert H.Trainer(lambda *a: None, None, fit, device="cpu").device.type == "cpu"
+
+
+def test_native_code_is_the_ports_own():
+    """The port builds its own copy of the OBJ reader, into build/, and
+    reads nothing of the JAX package's native directory."""
+    from a_robust_registration_loss_tpu_torch.native import objio_native
+
+    assert os.path.dirname(objio_native.SOURCE) == os.path.join(PORT, "native")
+    assert objio_native.BUILD_DIR == os.path.join(REPO, "build", "torch_native")
+    with open(os.path.join(PORT, "native", "objio_native.py")) as f:
+        assert "a_robust_registration_loss_tpu/" not in f.read()
+
+
+def test_data_layer_and_fmr_refuse_a_missing_card(monkeypatch, tmp_path):
+    """FMR's training and CLI, the dataset builders and the device cache run
+    on the card unless given the CPU."""
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.data import make_dataset as MK
+    from a_robust_registration_loss_tpu_torch.data import precompute as PC
+    from a_robust_registration_loss_tpu_torch.models.fmr import FMRConfig
+    from a_robust_registration_loss_tpu_torch.train import fmr as TF
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fit = H.FitConfig(epochs=1, exp_dir=str(tmp_path), log_tensorboard=False)
+    cfg = TF.FMRTrainConfig(model=FMRConfig(dim_k=64, num_points=8), fit=fit)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TF.train(cfg, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TF.init_model(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TF.evaluate(cfg, {}, [], str(tmp_path))
+    for main, argv in ((TF.main, ["--data_path", str(tmp_path)]),
+                       (MK.main, ["--sources", "x", "--out", str(tmp_path)]),
+                       (PC.main, ["--data_path", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    pts = np.zeros((4, 3), np.float32)
+    objio_path = str(tmp_path / "0_src_sample.obj")
+    from a_robust_registration_loss_tpu_torch.data import objio
+
+    for tag in ("src", "tar"):
+        objio.write_obj(str(tmp_path / f"0_{tag}_sample.obj"), pts)
+        pts.tofile(str(tmp_path / f"0_{tag}_sample_neigh.bin"))
+    loader = DS.Loader(DS.RegistrationPairs([objio_path], [objio_path.replace("src", "tar")]),
+                       1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DS.DeviceCache(loader)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DS.maybe_device_cache(loader)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DS.PrefetchLoader(loader)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DS.load_pair(objio_path, objio_path.replace("src", "tar"), estimate_normals=True)
+    assert isinstance(DS.DeviceCache(loader, device="cpu"), DS.DeviceCache)
 
 
 def test_probe_and_metric_refuse_a_missing_card(monkeypatch):
