@@ -68,11 +68,12 @@ class FMRConfig:
 
 
 class PointwiseBias(Pointwise):
-    """A 1x1 ``Conv1d`` with bias on channels-last features: weight
-    (out, in, 1), bias (out,)."""
+    """A 1x1 ``Conv1d`` (or, with ``kernel_dims=2``, ``Conv2d``) with bias on
+    channels-last features: weight (out, in, 1) or (out, in, 1, 1), bias
+    (out,)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(in_channels, out_channels, kernel_dims=1)
+    def __init__(self, in_channels: int, out_channels: int, kernel_dims: int = 1):
+        super().__init__(in_channels, out_channels, kernel_dims)
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):

@@ -1,5 +1,5 @@
-"""Carry the JAX package's DCP and FMR weights and Adam state into the port,
-and read a reference PyTorch checkpoint.
+"""Carry the JAX package's DCP, FMR and RPM-Net weights and Adam state into
+the port, and read a reference PyTorch checkpoint.
 
 ``dcp_from_flax`` turns the JAX package's DCP parameter tree (a nested dict
 of numpy arrays, ``model.init(...)["params"]`` or a restored checkpoint)
@@ -7,11 +7,14 @@ into a ``state_dict`` for the port's ``models.dcp.DCP``. It is the inverse
 of the name map in ``a_robust_registration_loss_tpu/models/transplant.py:
 dcp_from_state_dict``; the port's names are the reference PyTorch DCP's.
 ``fmr_from_flax`` does the same for FMR's ``SolveRegistration``, the
-inverse of ``fmr_from_state_dict`` there. ``adam_from_optax`` carries an
-optax Adam state over either tree into the port's ``ops.adam.AdamState``
-(flat, as ``train.harness`` steps it) through the same map.
-``load_torch_state_dict`` reads a reference ``.pth`` for
-``load_state_dict``.
+inverse of ``fmr_from_state_dict`` there, and ``rpmnet_from_flax`` for
+RPM-Net's ``RPMNetEarlyFusion``, the inverse of ``rpmnet_from_state_dict``
+there. ``adam_from_optax`` carries an optax Adam state over any of these
+trees into the port's ``ops.adam.AdamState`` (flat, as ``train.harness``
+steps it) through the same map, with the schedule's own count where the
+optimiser is ``optax.adam(schedule)``. ``load_torch_state_dict`` reads a
+reference ``.pth`` for ``load_state_dict``; ``rpmnet_from_state_dict``
+cuts a reference RPM-Net's to the port's parameters.
 
 Layouts: a Dense kernel (in, out) transposes into a weight (out, in), with
 the trailing 1s of a pointwise convolution appended for the embedding nets
@@ -26,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from a_robust_registration_loss_tpu_torch.ops.adam import AdamState
+from a_robust_registration_loss_tpu_torch.ops.adam import AdamState, ScheduledAdamState
 
 
 class _Tree:
@@ -162,16 +165,81 @@ def fmr_from_flax(params) -> dict:
     return sd
 
 
-def adam_from_optax(opt_state, names, from_flax=dcp_from_flax):
-    """An optax ``ScaleByAdamState`` over a JAX parameter tree -> the
-    port's ``ops.adam.AdamState`` for the parameters ``names`` (in the
-    order of ``model.named_parameters()``).
+def rpmnet_from_flax(params) -> dict:
+    """JAX-package ``RPMNetEarlyFusion`` params -> the port's
+    ``state_dict``: ``weights_net/Dense_{0..4}`` to ``weights_net.prepool.
+    {0,3,6,9,12}`` ((out, in, 1) weights), ``Dense_{5,6,7}`` to
+    ``weights_net.postpool.{0,3,6}``, each GroupNorm to the next index (or
+    ``weights_net/anneal_weights`` alone, the constant variant);
+    ``feat_extractor/Dense_{0..2}`` to ``feat_extractor.prepool.{0,3,6}``
+    ((out, in, 1, 1)) and ``Dense_{3..5}`` to ``feat_extractor.postpool.
+    {0,3,6}`` ((out, in, 1)), GroupNorms likewise. Raises ``KeyError`` on a
+    missing parameter and on one that no module of the port takes."""
+    tree = _Tree(params)
+    sd = {}
 
-    opt_state: (count, mu, nu), the count a scalar and each moment a tree
-    keyed like the Flax parameters, as numpy arrays. The moments go through
-    ``from_flax``'s name map (``dcp_from_flax`` or ``fmr_from_flax``: it is
-    linear, so it carries them as it carries the weights) and are flattened
-    and concatenated in ``names``' order."""
+    def dense(src, dst, ones=0):
+        w = tree.take(f"{src}/kernel").T.contiguous()
+        sd[f"{dst}.weight"] = w.reshape(w.shape + (1,) * ones)
+        sd[f"{dst}.bias"] = tree.take(f"{src}/bias")
+
+    def groupnorm(src, dst):
+        sd[f"{dst}.weight"] = tree.take(f"{src}/GroupNorm_0/scale")
+        sd[f"{dst}.bias"] = tree.take(f"{src}/GroupNorm_0/bias")
+
+    def stack(src, dst, first, layers, ones, norms):
+        for j in range(layers):
+            dense(f"{src}/Dense_{first + j}", f"{dst}.{3 * j}", ones)
+            if j < norms:
+                groupnorm(f"{src}/TorchGroupNorm_{first + j}", f"{dst}.{3 * j + 1}")
+
+    if tree.has("weights_net/anneal_weights"):
+        sd["weights_net.anneal_weights"] = tree.take("weights_net/anneal_weights").reshape(2)
+    else:
+        stack("weights_net", "weights_net.prepool", 0, 5, 1, 5)
+        stack("weights_net", "weights_net.postpool", 5, 3, 0, 2)
+    stack("feat_extractor", "feat_extractor.prepool", 0, 3, 2, 3)
+    stack("feat_extractor", "feat_extractor.postpool", 3, 3, 1, 2)
+    if tree.unused():
+        raise KeyError(f"rpmnet_from_flax: parameters no module takes: {tree.unused()}")
+    return sd
+
+
+def rpmnet_from_state_dict(sd) -> dict:
+    """A reference RPM-Net ``state_dict`` (its own names and shapes:
+    ``Conv1d`` weights (O, I, 1), ``Conv2d`` (O, I, 1, 1)) -> the port's:
+    the annealing net's last ``Linear`` (``weights_net.postpool.6``) and the
+    constant variant's ``weights_net.anneal_weights`` hold 2 +
+    prod(weights_dim) values of which the reference reads the first 2, and
+    only those are kept. Every other entry passes unchanged; the constant
+    variant is told apart by its ``anneal_weights`` key, and a model built
+    for the other variant refuses the result in ``load_state_dict``."""
+    out = dict(sd)
+    if "weights_net.anneal_weights" in out:
+        out["weights_net.anneal_weights"] = out["weights_net.anneal_weights"].reshape(-1)[:2]
+    for key in ("weights_net.postpool.6.weight", "weights_net.postpool.6.bias"):
+        if key in out:
+            out[key] = out[key][:2]
+    return out
+
+
+def adam_from_optax(opt_state, names, from_flax=dcp_from_flax):
+    """An optax Adam state over a JAX parameter tree -> the port's for the
+    parameters ``names`` (in the order of ``model.named_parameters()``).
+
+    opt_state: ``optax.adam(lr)``'s ``ScaleByAdamState`` (count, mu, nu),
+    the count a scalar and each moment a tree keyed like the Flax
+    parameters, as numpy arrays -> ``ops.adam.AdamState``; or
+    ``optax.adam(schedule)``'s chain state (that triple,
+    ``ScaleByScheduleState`` (count,)) -> ``ops.adam.ScheduledAdamState``,
+    Adam's count and the schedule's each kept. The moments go through
+    ``from_flax``'s name map (``dcp_from_flax``, ``fmr_from_flax`` or
+    ``rpmnet_from_flax``: it is linear, so it carries them as it carries
+    the weights) and are flattened and concatenated in ``names``' order."""
+    if len(opt_state) == 2:
+        adam_state, (schedule_count,) = opt_state
+        return ScheduledAdamState(adam_from_optax(adam_state, names, from_flax),
+                                  torch.tensor(np.asarray(schedule_count, np.int32)).reshape(()))
     count, mu, nu = opt_state
     mu, nu = from_flax(mu), from_flax(nu)
     return AdamState(torch.tensor(np.asarray(count, np.int32)).reshape(()),

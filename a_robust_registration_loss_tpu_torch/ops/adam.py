@@ -6,6 +6,12 @@ one count, freezing the rows of a pair with no usable line
 concatenation of a model's parameters and skip the whole step on a
 non-finite loss or gradient (``train/harness.py:guarded_update``). Both are
 ``step`` with a different ``keep``. Each operation rounds as optax's does.
+
+``optax.adam(schedule)`` keeps the schedule's step count beside Adam's. The
+two move together until a trainer restarts the schedule and keeps the
+moments (RPM-Net's handover from identity pretraining to training), so a
+scheduled optimiser carries a ``ScheduledAdamState``: Adam's state and the
+schedule's own count.
 """
 
 from __future__ import annotations
@@ -18,11 +24,19 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
 class AdamState(NamedTuple):
-    """optax.adam's state: one count (the moment and schedule counts move
-    together) and the two moments, shaped like the parameters."""
+    """optax.adam's state: the count of the bias correction (and of a
+    constant learning rate's steps) and the two moments, shaped like the
+    parameters."""
     count: torch.Tensor  # () int32, shared by every row
     mu: torch.Tensor
     nu: torch.Tensor
+
+
+class ScheduledAdamState(NamedTuple):
+    """optax.adam(schedule)'s state: Adam's, and the count the schedule is
+    read at, which may restart while Adam's goes on."""
+    adam: AdamState
+    count: torch.Tensor  # () int32
 
 
 def init(params: torch.Tensor) -> AdamState:

@@ -5,9 +5,12 @@ plain PyTorch versions.
 (B, N, C) float32 and idx (B, Q) int32 or int64; the gradient with respect
 to the table is the scatter-add of the upstream rows, and idx takes none.
 Replaces the TPU kernels ``a_robust_registration_loss_tpu/ops/pallas/
-gather.py:_fwd_kernel`` and ``_bwd_kernel`` behind ``gather_rows``. No model
-calls it (none does in the JAX package either, which kept it for wide C):
-it is an op with its own entry point.
+gather.py:_fwd_kernel`` and ``_bwd_kernel`` behind ``gather_rows``.
+RPM-Net's grouping calls it (``models/rpmnet.py:_group_gather``: the
+neighbours' xyz and normals, C = 6, at (4, 1,024, 6, 65,536) at the
+default width), where the JAX package takes ``jnp.take`` for the same
+function. The grouped table there is data, so only the forward runs on
+that path.
 
 Out-of-range indices follow the TPU kernel's one-hot selector: a row whose
 idx is < 0 or >= N comes out as zeros, and its gradient is dropped.

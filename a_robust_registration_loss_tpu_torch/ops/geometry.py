@@ -1,12 +1,12 @@
-"""Geometry primitives of the registration paths and the data layer:
-pairwise distances, FPS, k-NN, FPS+kNN neighbourhoods, bounding boxes and
-their 12-triangle meshes, chamfer distance, vertex normals of a mesh and
-PCA normals of a bare cloud.
+"""Geometry primitives of the registration paths, the data layer and
+RPM-Net: pairwise distances, FPS, k-NN, FPS+kNN neighbourhoods, the radius
+ball query and PointNet++ grouping, bounding boxes and their 12-triangle
+meshes, chamfer distance, vertex normals of a mesh and PCA normals of a
+bare cloud.
 
-Port of the subset of ``a_robust_registration_loss_tpu/ops/geometry.py``
-that the classical step and the data layer run. Indices follow the JAX
-package exactly: FPS takes the first argmax (``torch.argmax`` does too),
-and kNN keeps ``lax.top_k``'s tie order, lower index first, through a
+Port of ``a_robust_registration_loss_tpu/ops/geometry.py``. Indices follow
+the JAX package exactly: FPS takes the first argmax (``torch.argmax`` does
+too), and kNN keeps ``lax.top_k``'s tie order, lower index first, through a
 stable ascending sort (``torch.topk`` leaves the order of ties
 unspecified). Indices are int64, PyTorch's index type.
 """
@@ -86,6 +86,60 @@ def sample_neighs(points, num_sample: int = 5000, num_neigh: int = 3,
     neigh = index_points(pts, idx.reshape(pts.shape[0], -1))
     neigh = neigh.reshape(pts.shape[0], n * num_neigh, 3)
     return neigh[0] if points.ndim == 2 else neigh
+
+
+def query_ball_point(radius, nsample: int, xyz, new_xyz):
+    """Radius grouping with sort-truncate-backfill: (B, S, nsample) indices
+    into xyz (B, N, 3) of the points within ``radius`` of each query point
+    of new_xyz (B, S, 3), ascending; a ball with fewer than nsample points
+    repeats its first one. An empty ball gives N - 1 throughout: the
+    reference leaves its out-of-range sentinel N there, and the JAX package
+    clamps it to N - 1 (a documented divergence, kept)."""
+    N = xyz.shape[1]
+    sqrdists = square_distance(new_xyz, xyz)
+    group_idx = torch.arange(N, device=xyz.device).expand(sqrdists.shape)
+    group_idx = torch.where(sqrdists > radius**2, N, group_idx)
+    group_idx = _smallest_k(group_idx, nsample)
+    group_idx = torch.where(group_idx == N, group_idx[..., :1], group_idx)
+    return group_idx.clamp_max(N - 1)
+
+
+def _smallest_k(values, k: int):
+    """The k smallest values along the last axis, ascending: the values of
+    a full ascending sort's first k, by a k-selection (``torch.topk`` with
+    ``largest=False``) and no sort of the whole row. Only the values are
+    read, so the order ``topk`` gives ties does not matter."""
+    return torch.topk(values, k, dim=-1, largest=False, sorted=True).values
+
+
+def sample_and_group(npoint: int, radius, nsample: int, xyz, points=None,
+                     returnfps: bool = False, start_idx=None):
+    """PointNet++ set abstraction: FPS npoint centres, ball-query nsample
+    neighbours of each, coordinates relative to the centre, with the
+    neighbours' features ``points`` (B, N, D) appended when given.
+    xyz (B, N, 3) -> (new_xyz (B, npoint, 3), new_points (B, npoint,
+    nsample, 3[+D])), plus (grouped_xyz, fps_idx) with ``returnfps``."""
+    fps_idx = farthest_point_sample(xyz, npoint, start_idx)
+    new_xyz = index_points(xyz, fps_idx)
+    idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped_xyz = index_points(xyz, idx)
+    new_points = grouped_xyz - new_xyz[:, :, None, :]
+    if points is not None:
+        new_points = torch.cat([new_points, index_points(points, idx)], -1)
+    if returnfps:
+        return new_xyz, new_points, grouped_xyz, fps_idx
+    return new_xyz, new_points
+
+
+def sample_and_group_all(xyz, points=None):
+    """One group of the whole cloud around the origin: xyz (B, N, 3) ->
+    (zeros (B, 1, 3), (B, 1, N, 3[+D]))."""
+    B, N, C = xyz.shape
+    new_xyz = xyz.new_zeros((B, 1, C))
+    new_points = xyz[:, None]
+    if points is not None:
+        new_points = torch.cat([new_points, points.reshape(B, 1, N, -1)], -1)
+    return new_xyz, new_points
 
 
 def bounding_box_corners(vertices):

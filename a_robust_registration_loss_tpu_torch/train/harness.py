@@ -30,7 +30,7 @@ import torch
 from a_robust_registration_loss_tpu_torch import _device
 from a_robust_registration_loss_tpu_torch.data import objio
 from a_robust_registration_loss_tpu_torch.ops import adam
-from a_robust_registration_loss_tpu_torch.ops.adam import AdamState
+from a_robust_registration_loss_tpu_torch.ops.adam import AdamState, ScheduledAdamState
 from a_robust_registration_loss_tpu_torch.utils import CheckPointManager, MetricsWriter
 from a_robust_registration_loss_tpu_torch.utils.checkpoint import to_host
 
@@ -74,6 +74,23 @@ def guarded_update(lr: float, grads, opt_state: AdamState, params, loss):
         torch._foreach_copy_(params, [x.view_as(y) for x, y in
                                       zip(new_p.split([y.numel() for y in params]), params)])
         return state, (~finite).float()
+
+
+def scheduled_adam_init(params) -> ScheduledAdamState:
+    """``adam_init`` with the schedule's count beside Adam's, both 0."""
+    adam_state = adam_init(params)
+    return ScheduledAdamState(adam_state, torch.zeros_like(adam_state.count))
+
+
+def scheduled_update(schedule, grads, opt_state: ScheduledAdamState, params, loss):
+    """``guarded_update`` at the learning rate ``schedule(opt_state.count)``
+    (a float or a 0-d tensor on the device, optax.adam(schedule)'s): the
+    schedule's count advances with Adam's and, like it, stays where the
+    step is skipped. Returns (ScheduledAdamState, nonfinite flag)."""
+    adam_state, nonfinite = guarded_update(schedule(opt_state.count), grads, opt_state.adam,
+                                           params, loss)
+    count = torch.where(nonfinite == 0, opt_state.count + 1, opt_state.count)
+    return ScheduledAdamState(adam_state, count), nonfinite
 
 
 @dataclasses.dataclass(frozen=True)

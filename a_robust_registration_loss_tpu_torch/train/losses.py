@@ -1,6 +1,6 @@
-"""The trainers' metric glue and the DCP and FMR loss compositions:
-per-batch line resampling, the per-sample metric of a batch, and the
-unsupervised losses with their monitors.
+"""The trainers' metric glue and the DCP, RPM-Net and FMR loss
+compositions: per-batch line resampling, the per-sample metric of a batch,
+and the unsupervised losses with their monitors.
 
 Port of ``a_robust_registration_loss_tpu/train/losses.py``: what the DCP,
 RPM-Net and FMR compositions share (``LossConfig``, ``batch_lines``,
@@ -13,12 +13,17 @@ the ground truth that are logged and never optimised; and FMR's
 (``fmr_train_loss``): 15,000 lines drawn once against the last IC
 iterate's source at radius scale 0.5, the metric on the last 3 iterates
 discounted 0.5^(maxiter - i - 1), / 5.0 per sample then / batch size,
-total = 0.01 x the AE loss + the intersection. RPM-Net's composition needs
-its model and is not here yet.
+total = 0.01 x the AE loss + the intersection; and RPM-Net's
+(``rpm_cal_loss``, ``rpm_total_loss``): 10,000 lines drawn once against
+the source as moved by the first iteration's transform at radius scale
+1.0 (the full diagonal), per iteration the summed per-sample metric / the
+iteration count and the outlier regularisation, each discounted
+0.5^(num_iter - i - 1), total = 10 x reg + 1 x intersection.
 
-Data dicts follow the dataset contract in DCP's form: ``R`` (B, 3, 3) and
-``T`` (B, 3) in column convention, p' = R p + t, as the predicted
-(R_ab, t_ab) are. Where the JAX package takes a PRNG key, the functions
+Data dicts follow the dataset contract in DCP's form for DCP: ``R``
+(B, 3, 3) and ``T`` (B, 3) in column convention, p' = R p + t, as the
+predicted (R_ab, t_ab) are; RPM-Net and FMR take the plain contract's
+row-convention ``R``. Where the JAX package takes a PRNG key, the functions
 here take the uniforms themselves (``u4``, so a test can hand both sides
 the same draw) or draw them from a ``torch.Generator``.
 
@@ -171,6 +176,68 @@ def dcp_train_loss(data, R_ab, t_ab, R_ba, t_ba, cfg: LossConfig = LossConfig(),
         loss = loss + 0.1 * cyc
         monitors = dict(monitors, cycle_loss=cyc.detach())
     return loss, dict(monitors, loss_intersection=loss_inter.detach())
+
+
+# ---------------------------------------------------------------------------
+# RPM-Net
+# ---------------------------------------------------------------------------
+
+def rpm_cal_loss(pred_transforms, perm_matrices, data,
+                 cfg: LossConfig = LossConfig(n_lines=10000), u4=None, generator=None):
+    """RPM-Net's losses: returns (losses, the source moved by the last
+    iteration's transform).
+
+    pred_transforms: a (B, 3, 4) column-convention transform per iteration;
+    perm_matrices: the (B, J, K) Sinkhorn matrix of each; data in the plain
+    contract (row-convention ``R``). The lines come from ``u4`` or are drawn
+    from ``generator``, once, against the source as moved by the first
+    iteration's transform: one resampler launch and one stage-1 launch an
+    iteration on the card. losses: ``loss_intersection``, ``loss_reg`` (the
+    optimised parts), ``loss_chamfer`` and ``loss_gt`` (detached
+    monitors)."""
+    num_iter = len(pred_transforms)
+    src = data["points_src_sample"][..., :3]
+    tar = data["points_tar_sample"]
+    src_neis_raw = _flat_neis(data["points_based_neighs_src"])
+    tar_neis = _flat_neis(data["points_based_neighs_tar"])
+    B = src.shape[0]
+
+    lines = None
+    inter_terms, chamfer_terms = [], []
+    for g in pred_transforms:
+        pred_src = se3.rt_transform(g, src)
+        if lines is None:
+            if u4 is None:
+                u4 = draw_uniforms(B, cfg.n_lines, src.device, generator)
+            lines = batch_lines(u4, data["tar_box"], data["centers"], cfg.n_lines,
+                                pred_src, tar, radius_scale=1.0)
+        inter = _metric_batch_rt(g[..., :3, :3].transpose(-1, -2), g[..., :3, 3], src_neis_raw,
+                                 tar_neis, lines, cfg).sum()
+        inter_terms.append(inter / num_iter)
+        chamfer_terms.append(G.chamfer_distance(tar, pred_src.detach()))
+
+    reg_terms = []
+    for perm in perm_matrices:
+        ref_outliers = (1.0 - perm.sum(dim=1)) * cfg.wt_inliers
+        src_outliers = (1.0 - perm.sum(dim=2)) * cfg.wt_inliers
+        reg_terms.append(ref_outliers.mean() + src_outliers.mean())
+
+    def discounted(terms):
+        return sum(t * cfg.discount ** (num_iter - ni - 1) for ni, t in enumerate(terms))
+
+    with torch.no_grad():
+        # the row-convention ground truth as a column transform [R^T | T]
+        g = torch.cat([data["R"].transpose(-1, -2), data["T"][..., None]], dim=-1)
+        loss_gt = (se3.rt_transform(g, src) - pred_src).abs().mean()
+    losses = dict(loss_intersection=discounted(inter_terms),
+                  loss_chamfer=discounted(chamfer_terms),
+                  loss_reg=discounted(reg_terms), loss_gt=loss_gt)
+    return losses, pred_src
+
+
+def rpm_total_loss(losses: dict):
+    """total = 10 * reg + 1 * intersection."""
+    return 10.0 * losses["loss_reg"] + 1.0 * losses["loss_intersection"]
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,12 @@ Drives the port's paths on the card:
   45 degrees, 0.3), 48 training and 12 test pairs; FMR at ``FMRConfig``'s
   full width (dim_k 1,024, 2.65 M parameters from seed 0; B = 4, 15,000
   lines, train maxiter 5, eval maxiter 10, lr 1e-6), DCP's CLI at its
-  defaults (PointNet, transformer, SVD head, emb 512).
+  defaults (PointNet, transformer, SVD head, emb 512), and RPM-Net at
+  ``RPMNetConfig``'s full width (features ppf, dxyz, xyz; feat_dim 96;
+  radius 0.3 and 64 neighbours; 5 Sinkhorn iterations with slack; the
+  annealing PointNet; 2 registration iterations in training and 5 in
+  evaluation; B = 4, 10,000 lines; identity pretraining cut from the
+  convergence protocol's 20 epochs to 1).
 
 Phases:
 
@@ -142,7 +147,10 @@ Phases:
    ``train_step``'s ms/iteration and a 5-iteration profile that counts host
    copies and waits (the SVD head waits), and ``guarded_update``'s kernels,
    in a profile that fails on a host copy or wait;
-14. the data layer: ``estimate_normals`` of 4,096 points timed on the card,
+14. (run first, after the build, with the first part of phase 17: once
+   other phases have traced, the tracer may lose a short kernel's records
+   in every window) the data layer: ``estimate_normals`` of 4,096 points
+   timed on the card,
    ``make_dataset.main`` writing the 60 pairs (views layout) with its wall
    time and no kernel launched, the objio backend (``native``);
    ``generate_datasets`` giving 12 training batches of 4 and 12 test
@@ -171,7 +179,32 @@ Phases:
    ``Eval.json``, ``--init_from_ckpt`` from that run (the parameters before
    the first step equal to the loaded ones) and ``--init_from_torch`` on a
    ``.pth`` of the first model's ``state_dict`` under a ``module.`` prefix
-   inside ``{"state_dict": ...}`` with an integer beside it.
+   inside ``{"state_dict": ...}`` with an integer beside it;
+17. RPM-Net through ``train.rpmnet.main`` on those files: 1 pretraining
+   and 2 training epochs, each step's launches checked by kind (a training
+   step 1 batched resampler, 2 stage-1 ``<2,0,0,1>`` and 4 gather forwards;
+   an eval step 10 gather forwards; a pretraining step 2; no gather
+   backward and nothing else in any), the checkpoint equal to the trained
+   state bit for bit (Adam's count and the schedule's apart), the resume to
+   3 epochs and an uninterrupted 3-epoch run (every epoch's loss within
+   1e-5); ``--eval_only`` (``Val.json``, each test pair's OBJ dumps and
+   ``{epoch}_pred_src_{idx}.bin`` with R transposed, held to the
+   checkpoint's model on the card), ``--init_from_ckpt`` and
+   ``--init_from_torch`` on a reference-layout ``.pth`` (the annealing
+   net's last layer with 2 + 3 outputs); (first, after phase 14) RPM-Net's
+   ball query on a training batch, card against CPU (equal off the float64
+   knife edge), and the gather on its indices against
+   ``gather_rows_reference`` and ``take_along_dim`` bit for bit, with both
+   directions' times; one training step on
+   the card against the CPU's plain path with the card's lines and ball
+   indices (loss within 1e-4 relative, equal stage-1 counts, the gradient
+   within 5e-4 relative L2 or no farther from a float64 gradient than
+   twice the CPU's, with the Kabsch covariances' singular values printed);
+   ``train_step`` fed from the ``DeviceCache`` with its ms/step, peak
+   memory and a 5-step profile that fails on a host-to-device copy (waits
+   counted, Kabsch's ``svd`` and ``det`` profiled alone) and its
+   GroupNorm passes timed alone at their shapes; a NaN batch skipped with
+   the state unchanged.
 
 Each phase's wall time is printed as it ends and all of them together
 before the kernels line. Every phase that drives a path sets the launch
@@ -2100,6 +2133,484 @@ def dcp_cli_phase(torch, mods, data, tmp):
     return launches, eval_launches
 
 
+L_RPM = 10000  # RPM-Net's lines a sample
+RPM_CLI = []  # more flags for RPM-Net's CLI (none: its full-width defaults)
+RPM_STEPS = {  # launches by kind of step: 2 registration iterations in training, 5 in eval
+    "train": {"resample_batched": 1, "stage1_pair_pts": 2, "gather_fwd": 4},
+    "eval": {"gather_fwd": 10},
+    "pretrain": {"gather_fwd": 2},
+    "artifact": {"gather_fwd": 10},
+}
+RPM_RADIUS, RPM_NS = 0.3, 64  # RPMNetConfig's ball
+
+
+class _StepCounts:
+    """Wraps ``train.rpmnet``'s step functions while entered: each call's
+    launches must equal ``RPM_STEPS`` of its kind (0 of every other kernel,
+    the gather's backward and stage 1's other instantiations among them);
+    counts the calls and adds up the launches by kind."""
+
+    NAMES = {"train_step": "train", "eval_step": "eval", "pretrain_step": "pretrain",
+             "artifact_fn": "artifact"}
+
+    def __init__(self, TR, IK, RS, PB):
+        self.TR, self.mods = TR, (IK, RS, PB)
+        self.calls = {k: 0 for k in self.NAMES.values()}
+        self.totals = {k: {} for k in self.NAMES.values()}
+
+    def _wrap(self, fn, kind):
+        def call(*a, **k):
+            before = counts(*self.mods)
+            out = fn(*a, **k)
+            diff = {n: c - before[n] for n, c in counts(*self.mods).items()}
+            check_counts(diff, RPM_STEPS[kind], 1, f"an RPM-Net {kind} step")
+            self.calls[kind] += 1
+            for n, c in diff.items():
+                self.totals[kind][n] = self.totals[kind].get(n, 0) + c
+            return out
+        return call
+
+    def __enter__(self):
+        self.real = {name: getattr(self.TR, name) for name in self.NAMES}
+        for name, kind in self.NAMES.items():
+            setattr(self.TR, name, self._wrap(self.real[name], kind))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.TR, name, fn)
+
+
+def knife_edge_rows(torch, xyz, radius):
+    """(B, N) bool on the CPU: the rows of a self-excluding ball query of xyz
+    that hold a pair whose float64 d^2 lies within 1e-6 r^2 of r^2, where
+    two roundings of the inner-product expansion may disagree."""
+    p = xyz.detach().cpu().double()
+    d2 = torch.cdist(p, p) ** 2
+    edge = (d2 - radius**2).abs() <= 1e-6 * radius**2
+    edge &= ~torch.eye(p.shape[1], dtype=torch.bool)[None]
+    return edge.any(-1)
+
+
+class _Handed:
+    """Wraps ``models.rpmnet.query_ball_point_excl`` while entered: records
+    the indices of every call, or hands ``given`` out in their place, in
+    call order."""
+
+    def __init__(self, RM, given=None):
+        self.RM, self.given, self.seen = RM, None if given is None else iter(given), []
+
+    def __enter__(self):
+        self.real = self.RM.query_ball_point_excl
+
+        def query(*a, **k):
+            self.seen.append(self.real(*a, **k) if self.given is None else next(self.given))
+            return self.seen[-1]
+
+        self.RM.query_ball_point_excl = query
+        return self
+
+    def __exit__(self, *exc):
+        self.RM.query_ball_point_excl = self.real
+
+
+def rpm_parity(torch, mods, cfg, model, batch, gen):
+    """One training step on the card against the CPU's plain path at full
+    width, the card's lines and ball indices on both sides. The loss on the
+    card's transforms and Sinkhorn matrices: within 1e-4 relative, stage-1
+    counts equal in every iteration, its gradient there within 5e-4
+    relative L2. The network's backward from that gradient to every
+    parameter: within 5e-4 relative L2 of the CPU's or, where the Kabsch
+    SVD amplifies rounding, no farther from the network's float64 backward
+    (on the CPU) than twice the CPU's fp32 distance to it. Each side's own
+    forward (its transforms, then its loss) is printed beside them: fp32
+    rounding moves the transforms, which moves a few stage-1 hits. Prints
+    the Kabsch covariances' singular values and the SVD gradient's largest
+    1 / (s_i^2 - s_j^2). Returns the relative errors."""
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as RM
+    from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
+
+    G, M, IK, RS, PB, LS = mods[:6]
+    GK = RM.GK
+    n_iter = cfg.num_train_reg_iter
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    flat = lambda xs: torch.cat([x.reshape(-1) for x in xs]).cpu().double()
+    u4 = LS.draw_uniforms(B5, L_RPM, DEV, gen)
+    t0 = time.perf_counter()
+    svals = []
+    real_svd = torch.linalg.svd
+
+    def svd(x, *a, **k):  # the card's Kabsch covariances' singular values
+        svals.append(torch.linalg.svdvals(x.detach()).cpu())
+        return real_svd(x, *a, **k)
+
+    def network(m, b, given=None):
+        """m's outputs (transforms then Sinkhorn matrices) and the ball
+        indices it took (given ones, or its own)."""
+        with _Handed(RM, given) as hand:
+            transforms, ep = TR.forward(m, b, n_iter)
+        return list(transforms) + list(ep["perm_matrices"]), hand.seen
+
+    def loss(outs, b, lines=None):
+        """(total, the gradient at outs, stage-1 counts, the lines) of the
+        loss on outs as leaves."""
+        leaves = [o.detach().requires_grad_(True) for o in outs]
+        with _Recorder(LS, M, lines) as rec:
+            losses, _ = LS.rpm_cal_loss(leaves[:n_iter], leaves[n_iter:], b, cfg.loss,
+                                        u4=u4.to(leaves[0].device))
+        total = LS.rpm_total_loss(losses)
+        check(float(losses["loss_intersection"].detach()) > 0, "no usable line in RPM-Net's loss")
+        return float(total.detach()), torch.autograd.grad(total, leaves), rec.counts, rec.lines[0]
+
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    torch.linalg.svd = svd
+    try:
+        outs_k, idx = network(model, batch)
+    finally:
+        torch.linalg.svd = real_svd
+    idx = [i.cpu() for i in idx]
+    total_k, up_k, counts_k, lines = loss(outs_k, batch)
+    lines = lines.cpu()
+    total_c, up_c, counts_c, _ = loss([o.detach().cpu() for o in outs_k], cpu_batch, lines)
+    loss_err = abs(total_k - total_c) / abs(total_c)
+    up_err = rel(flat(up_k), flat(up_c))
+    counts_equal = len(counts_k) == len(counts_c) == n_iter and all(
+        np.array_equal(a, b) for a, b in zip(counts_k, counts_c))
+
+    # the network's backward from the card's upstream gradient: card, CPU
+    # fp32, CPU float64
+    cpu_model = RM.RPMNetEarlyFusion(cfg.model)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    outs_c, _ = network(cpu_model, cpu_batch, idx)
+    m64 = RM.RPMNetEarlyFusion(cfg.model).double()
+    m64.load_state_dict({k: v.double() for k, v in cpu_model.state_dict().items()})
+    b64 = {k: (v.double() if v.is_floating_point() else v) for k, v in cpu_batch.items()}
+    real_gather = GK.gather_rows
+    GK.gather_rows = GK.gather_rows_reference  # the plain version takes float64
+    try:
+        outs_64, _ = network(m64, b64, idx)
+    finally:
+        GK.gather_rows = real_gather
+    g = {}
+    for name, m, outs in (("card", model, outs_k), ("cpu", cpu_model, outs_c),
+                          ("f64", m64, outs_64)):
+        up = [u.to(outs[0].device, outs[0].dtype) for u in up_k]
+        g[name] = flat(torch.autograd.grad(outs, list(m.parameters()), up))
+    e_kc, e_k64, e_c64 = rel(g["card"], g["cpu"]), rel(g["card"], g["f64"]), rel(g["cpu"],
+                                                                                  g["f64"])
+    out_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  for a, b in zip(outs_k[:n_iter], outs_c[:n_iter]))
+    perm_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for a, b in zip(outs_k[n_iter:], outs_c[n_iter:]))
+    # each side's own forward and loss (the same lines and ball indices)
+    own_c, _, own_counts, _ = loss(outs_c, cpu_batch, lines)
+    own_hits = [int((a != b).sum()) for a, b in zip(counts_k, own_counts)]
+    sv = torch.stack(svals)  # (iterations, B, 3)
+    gaps = torch.stack([sv[..., 0] ** 2 - sv[..., 1] ** 2, sv[..., 1] ** 2 - sv[..., 2] ** 2])
+    print(f"RPM-Net on the card vs the CPU's plain path (B={B5} N={NP5} feat_dim "
+          f"{cfg.model.feat_dim} k={cfg.model.num_neighbors} L={L_RPM}, {n_iter} iterations, "
+          f"the card's lines and ball indices on both sides, {time.perf_counter() - t0:.1f} s): "
+          f"on the card's transforms and Sinkhorn matrices, loss {total_k:.7f} vs "
+          f"{total_c:.7f} (rel {loss_err:.3g}), stage-1 counts equal in every iteration: "
+          f"{counts_equal} ({[int(c.sum()) for c in counts_k]} hits), its gradient there rel "
+          f"L2 {up_err:.3g}; the network's backward from that gradient to the "
+          f"{g['card'].numel()} parameter values rel L2 {e_kc:.3g} (card vs CPU), {e_k64:.3g} "
+          f"(card vs float64), {e_c64:.3g} (CPU vs float64); each side's own forward: "
+          f"transforms within {out_err:.3g}, Sinkhorn matrices within {perm_err:.3g}, loss "
+          f"{own_c:.7f} (rel {abs(total_k - own_c) / abs(own_c):.3g}), {own_hits} stage-1 counts "
+          f"differ; Kabsch covariances' singular values by iteration "
+          f"{np.round(sv.numpy(), 6).tolist()}, the SVD gradient's largest 1 / (s_i^2 - "
+          f"s_j^2) {float(1 / gaps.abs().min()):.4g}", flush=True)
+    check(loss_err <= 1e-4, f"RPM-Net loss on the card's outputs: {total_k} vs the CPU's "
+          f"{total_c}")
+    check(counts_equal, "RPM-Net parity: stage-1 counts differ from the CPU's")
+    check(up_err <= 5e-4, f"RPM-Net loss gradient at the network's outputs: rel L2 {up_err}")
+    check(e_kc <= 5e-4 or e_k64 <= 2 * e_c64,
+          f"RPM-Net network gradient: card vs CPU {e_kc}, card vs float64 {e_k64}, CPU vs "
+          f"float64 {e_c64}")
+    return dict(loss_rel=loss_err, upstream_rel=up_err, grad_rel=e_kc, grad_rel_f64=e_k64,
+                cpu_rel_f64=e_c64, transforms_abs=out_err, own_loss_rel=abs(total_k - own_c) /
+                abs(own_c), own_counts_differ=own_hits)
+
+
+def rpm_grouping_phase(torch, mods, data):
+    """RPM-Net's grouping on a training batch of the data phase's files
+    (module docstring, phase 17), before any other phase traces (after
+    other traces the tracer may lose a short kernel's records in every
+    window): the ball query on the
+    card against the CPU, equal off the float64 knife edge, then the gather
+    on its indices against ``gather_rows_reference`` and
+    ``take_along_dim`` bit for bit, with both directions' times. Returns
+    the gather's fields {"fwd": ..., "bwd": ...}."""
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as RM
+
+    GK = mods[6]
+    train, _ = DS.generate_datasets(DS.DatasetConfig(
+        data_path=data, layout="views", train_count=TRAIN5, train_batch=B5), device=DEV)
+    batch = next(iter(DS.DeviceCache(train, DEV)))
+    # RPM-Net's own ball query on a real batch: card against CPU, then the
+    # gather on its indices against its plain version, with its times
+    src, nsrc = batch["points_src_sample"], batch["normals_src"]
+    itself = torch.arange(NP5, device=DEV).expand(B5, NP5)
+    idx = RM.query_ball_point_excl(RPM_RADIUS, RPM_NS, src, src, itself)
+    idx_cpu = RM.query_ball_point_excl(RPM_RADIUS, RPM_NS, src.cpu(), src.cpu(), itself.cpu())
+    differ = idx.cpu() != idx_cpu
+    edge = knife_edge_rows(torch, src, RPM_RADIUS)
+    rows = differ.any(-1)
+    check(not bool((rows & ~edge).any()),
+          "RPM-Net ball query: the card and the CPU differ off the knife edge")
+    inball = float((idx != itself[..., None]).float().sum(-1).mean())
+    table = torch.cat([src, nsrc], dim=-1)
+    flat = idx.reshape(B5, NP5 * RPM_NS)
+    g = torch.randn((B5, flat.shape[1], 6), generator=gen_on(torch, 17), device=DEV)
+    ef, eb = gather_check(torch, GK, table, flat, g, "RPM-Net's ball query")
+    gtimes = gather_times(torch, GK, table, flat, g)
+    gtimes["fwd"]["err"], gtimes["bwd"]["err"] = ef, eb
+    fwd = gtimes["fwd"]
+    db = 1e3 * fwd["nbytes"] / PEAK_BYTES
+    print(f"RPM-Net's ball query on a training batch (radius {RPM_RADIUS}, {RPM_NS} "
+          f"neighbours, {inball:.1f} in the ball on average): card vs CPU {int(differ.sum())} "
+          f"differing entries in {int(rows.sum())} rows, all among the {int(edge.sum())} rows "
+          f"with a knife-edge pair; the gather on its indices ({fwd['shape']}) equals "
+          f"gather_rows_reference and take_along_dim bit for bit: kernel {fwd['ms']:.4f} ms, "
+          f"call {fwd['call_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, take_along_dim "
+          f"{fwd['library_ms']:.4f} ms, bound {db:.5f} ms by bytes ({db / fwd['ms']:.1%} of it "
+          f"reached)", flush=True)
+    return gtimes
+
+
+def rpm_phase(torch, mods, data, tmp, rate):
+    """RPM-Net trained from files at full width (module docstring, phase
+    17). Returns ({path: launches} of the first training run by kind of
+    step and of its eval-only run, the step's measured numbers)."""
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as RM
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+    from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
+    from a_robust_registration_loss_tpu_torch.utils import CheckPointManager, load_params_from
+
+    G, M, IK, RS, PB, LS, GK = mods[:7]
+    args = ["--data_path", data, "--layout", "views", "--train_count", str(TRAIN5),
+            "--batch_size", str(B5), "--n_lines", str(L_RPM), "--pretrain_epochs", "1",
+            "--seed", "0", "--device", DEV] + RPM_CLI
+    run, full = os.path.join(tmp, "rpm_run"), os.path.join(tmp, "rpm_full")
+    steps, n_test = TRAIN5 // B5, 6 * VIEWS5 - TRAIN5
+    torch.cuda.synchronize()
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    with _StepCounts(TR, IK, RS, PB) as sc:
+        model, state, hist = TR.main(args + ["--exp_dir", run, "--epochs", "2"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts(IK, RS, PB)
+    check(sc.calls == {"train": 2 * steps, "eval": 2 * n_test, "pretrain": steps,
+                       "artifact": 1}, f"RPM-Net steps by kind: {sc.calls}")
+    by_kind = {n: sum(t.get(n, 0) for t in sc.totals.values()) for n in launches}
+    check(by_kind == launches, f"RPM-Net launches outside its steps: {launches} vs {by_kind}")
+    paths = {"rpm_pretrain": sc.totals["pretrain"],
+             "rpm_train": {n: launches[n] - sc.totals["pretrain"][n] for n in launches}}
+    cfg = TR.RPMTrainConfig(loss=LS.LossConfig(n_lines=L_RPM), model=model.cfg)
+    secs = _epoch_seconds(run)
+    print(f"RPM-Net train through train.rpmnet.main: 1 pretrain epoch and 2 epochs of {steps} "
+          f"steps of B={B5} N={NP5} L={L_RPM} (feat_dim {cfg.model.feat_dim}, k="
+          f"{cfg.model.num_neighbors}, radius {cfg.model.radius}, {cfg.model.num_sk_iter} "
+          f"Sinkhorn iterations, {sum(p.numel() for p in model.parameters())} parameters) and "
+          f"{n_test} eval pairs at 5 iterations: {dt:.2f} s (CLI, data and set-up included); "
+          f"time/epoch_seconds {secs} (pretrain {_epoch_seconds(os.path.join(run, 'pretrain'))})"
+          f"; train loss {[h['loss'] for h in hist]}; test loss_gt "
+          f"{[h['test_loss'] for h in hist]}; steps {sc.calls}; launches by kind of step "
+          f"{ {k: {n: c for n, c in v.items() if c} for k, v in sc.totals.items()} }",
+          flush=True)
+    check(len(secs) == 2, "time/epoch_seconds is not in metrics.jsonl")
+    check(int(state.adam.count) == 3 * steps and int(state.count) == 2 * steps,
+          f"RPM-Net Adam count {int(state.adam.count)}, schedule count {int(state.count)}")
+
+    # the state a resume loads equals the state saved, bit for bit
+    template = {"params": TR.init_model(cfg, 99, DEV).state_dict(),
+                "opt_state": H.scheduled_adam_init(model.parameters()), "epoch": 0}
+    loaded, _ = CheckPointManager(os.path.join(run, "checkpoints")).load(template)
+    saved = model.state_dict()
+    check(int(loaded["epoch"]) == 1 and all(torch.equal(v, saved[k])
+                                            for k, v in loaded["params"].items()),
+          "RPM-Net: the checkpoint's parameters differ from the trained model's")
+    check(all(torch.equal(a, b) for a, b in zip(loaded["opt_state"].adam + (
+        loaded["opt_state"].count,), state.adam + (state.count,))),
+          "RPM-Net: the checkpoint's optimiser state differs from the trained one")
+    _, _, resumed = TR.main(args + ["--exp_dir", run, "--epochs", "3"])
+    _, _, uninterrupted = TR.main(args + ["--exp_dir", full, "--epochs", "3"])
+    errs = [abs(h["loss"] - f["loss"]) / abs(f["loss"])
+            for h, f in zip(hist + resumed, uninterrupted)]
+    print(f"RPM-Net resume: epoch {[h['epoch'] for h in resumed]} train loss "
+          f"{resumed[0]['loss']:.9f}, uninterrupted {uninterrupted[2]['loss']:.9f}; train loss "
+          f"rel err against the uninterrupted run by epoch {[f'{e:.3g}' for e in errs]}",
+          flush=True)
+    check([h["epoch"] for h in resumed] == [2], "the RPM-Net resume did not run epoch 2 alone")
+    check(len(errs) == 3 and max(errs) <= 1e-5, f"RPM-Net train loss vs uninterrupted: {errs}")
+    for h in hist + resumed + uninterrupted:
+        check(all(np.isfinite(v) for v in h.values()), f"an RPM-Net metric is not finite: {h}")
+        check(h["nonfinite_steps"] == 0.0, f"an RPM-Net step was skipped: {h}")
+
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    summary = TR.main(args + ["--exp_dir", run, "--eval_only"])
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    paths["rpm_eval_only"] = counts(IK, RS, PB)
+    check_counts(paths["rpm_eval_only"], RPM_STEPS["eval"], n_test, "RPM-Net --eval_only")
+    out = os.path.join(run, "eval")
+    with open(os.path.join(out, "Val.json")) as f:
+        check(json.load(f) == summary and all(np.isfinite(list(summary.values()))),
+              f"Val.json {summary}")
+    # the .bin transforms: the model of the latest checkpoint (epoch 2) on the test pairs
+    state2, _ = CheckPointManager(os.path.join(run, "checkpoints")).load(template)
+    epoch = int(state2["epoch"])
+    check(epoch == 2, f"the latest RPM-Net checkpoint is epoch {epoch}")
+    evaluated = TR.init_model(cfg, 0, DEV)
+    evaluated.load_state_dict(state2["params"])
+    _, test = DS.generate_datasets(DS.DatasetConfig(
+        data_path=data, layout="views", train_count=TRAIN5, train_batch=B5), device=DEV)
+    worst = 0.0
+    with torch.no_grad():
+        for i, b in enumerate(test):
+            b = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+            tf = TR.forward(evaluated, b, cfg.num_eval_reg_iter)[0][-1][0].cpu().numpy()
+            binary = np.fromfile(os.path.join(out, f"{epoch}_pred_src_{i}.bin"), np.float32)
+            want = np.concatenate([tf[:, :3].T, tf[:, 3:]], axis=1).reshape(-1)
+            worst = max(worst, float(np.abs(binary - want).max()))
+            for part in ("src", "pred_src", "tar", "gt_src"):
+                check(os.path.exists(os.path.join(out, f"pair{i}_{part}.obj")),
+                      f"RPM-Net eval: pair{i}_{part}.obj is missing")
+    check(i == n_test - 1 and worst <= 1e-5,
+          f"RPM-Net eval: {i + 1} pairs, the .bin transforms (R transposed) within {worst} of "
+          "the model's")
+    print(f"RPM-Net --eval_only: {n_test} pairs ({dt_eval:.2f} s, CLI included), Val.json sums "
+          f"{summary}; the {n_test} {epoch}_pred_src_*.bin transforms (R transposed) within "
+          f"{worst:.3g} of the checkpoint's model on the card; launches {paths['rpm_eval_only']}",
+          flush=True)
+
+    # the initialisations
+    loaded_best = load_params_from(run, template)
+    start, _, none = TR.main(args + ["--exp_dir", os.path.join(tmp, "rpm_ckpt"),
+                                     "--init_from_ckpt", run, "--epochs", "0",
+                                     "--pretrain_epochs", "0"])
+    same = lambda a, b: a.keys() == b.keys() and all(torch.equal(v, b[k]) for k, v in a.items())
+    check(none == [] and same(start.state_dict(), loaded_best),
+          "RPM-Net --init_from_ckpt: the parameters before the first step differ from the "
+          "loaded ones")
+    pth = os.path.join(tmp, "rpm_ref.pth")
+    ref = {k: v.cpu().clone() for k, v in saved.items()}
+    for k in ("weights_net.postpool.6.weight", "weights_net.postpool.6.bias"):
+        ref[k] = torch.cat([ref[k], torch.ones((3,) + ref[k].shape[1:])])  # weights_dim 3
+    torch.save({"state_dict": {f"module.{k}": v for k, v in ref.items()}, "epoch": 1}, pth)
+    start, _, _ = TR.main(args + ["--exp_dir", os.path.join(tmp, "rpm_torch"),
+                                  "--init_from_torch", pth, "--epochs", "0",
+                                  "--pretrain_epochs", "0"])
+    check(same(start.state_dict(), saved),
+          "RPM-Net --init_from_torch: the parameters differ from the saved model's")
+    print("RPM-Net --init_from_ckpt: the parameters before the first step equal the loaded "
+          "best checkpoint's; --init_from_torch (a reference-layout .pth: module. prefix, "
+          "{'state_dict': ...}, the annealing net's last layer with 2 + 3 outputs): equal to "
+          "the saved model's", flush=True)
+
+    train, _ = DS.generate_datasets(DS.DatasetConfig(
+        data_path=data, layout="views", train_count=TRAIN5, train_batch=B5), device=DEV)
+    cache = DS.DeviceCache(train, DEV)
+    batch = next(iter(cache))
+    gen = gen_on(torch, 8)
+    parity = rpm_parity(torch, mods, cfg, model, batch, gen)
+
+    # train_step fed from the cache: ms/step, peak memory, then a 5-step profile
+    st = {"s": H.scheduled_adam_init(model.parameters()), "it": iter(cache)}
+
+    def one():
+        b = next(st["it"], None)
+        if b is None:
+            st["it"] = iter(cache)
+            b = next(st["it"])
+        st["s"], st["m"] = TR.train_step(model, st["s"], b, cfg, generator=gen)
+
+    for _ in range(WARMUP2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAD_ITERS3):
+        one()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / GRAD_ITERS3
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"RPM-Net train_step fed from the DeviceCache: {ms:.4f} ms/step over {GRAD_ITERS3}; "
+          f"peak memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB held before the step)", flush=True)
+    st["it"] = iter(cache)  # the epoch's index copy before the window
+    prof = profile_phase(torch, one, PROFILED3, "step", ms, strict=False)
+    check(prof is not None and prof["htod"] == 0,
+          f"RPM-Net steps fed from the cache copied to the device: {prof}")
+    gn_ms, gn_calls = groupnorm_ms(torch, model, one)
+    print(f"RPM-Net's GroupNorm passes: {gn_calls} a step, forward and backward {gn_ms:.4f} ms "
+          f"a step when each is timed alone at its shape = {gn_ms / prof['busy_ms']:.1%} of "
+          f"the step's {prof['busy_ms']:.4f} ms of device time", flush=True)
+    # the step's library calls that may wait for the card, alone
+    H3 = torch.eye(3, device=DEV).expand(B5, 3, 3) + 0.1
+    for name, fn in (("svd", torch.linalg.svd), ("det", torch.linalg.det)):
+        print(f"RPM-Net Kabsch's {name} on (B, 3, 3), alone:", flush=True)
+        profile_phase(torch, lambda: fn(H3), PROFILED3, "call", cuda_ms(torch, lambda: fn(H3), 5),
+                      strict=False)
+
+    # a NaN batch is skipped, the model and the state unchanged
+    poisoned = dict(batch)
+    poisoned["points_src_sample"] = batch["points_src_sample"].clone()
+    poisoned["points_src_sample"][0, 0, 0] = float("nan")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    after, m = TR.train_step(model, st["s"], poisoned, cfg, generator=gen)
+    check(float(m["nonfinite_steps"]) == 1.0, "the RPM-Net NaN batch was not skipped")
+    check(all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
+          "the RPM-Net NaN batch changed the model")
+    check(all(torch.equal(a, b) for a, b in zip(after.adam + (after.count,),
+                                                st["s"].adam + (st["s"].count,))),
+          "the RPM-Net NaN batch changed the optimiser state")
+    print("RPM-Net NaN batch skipped, model and optimiser state unchanged bit for bit",
+          flush=True)
+    return paths, dict(parity, ms_step=ms, peak_mib=peak / 2**20, profile=prof,
+                       epoch_seconds=secs, groupnorm_ms=gn_ms)
+
+
+def groupnorm_ms(torch, model, step):
+    """The device time a step spends in ``model``'s GroupNorm passes: the
+    input shape of each GroupNorm call in one ``step()``, then each shape's
+    forward and backward timed alone with CUDA events (10 calls after a
+    warm-up), added up over the calls. Returns (ms a step, calls a
+    step)."""
+    from a_robust_registration_loss_tpu_torch.models.common import TorchGroupNorm
+
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: shapes.append((mod, a[0].shape)))
+             for m in model.modules() if isinstance(m, TorchGroupNorm)]
+    try:
+        step()
+    finally:
+        for h in hooks:
+            h.remove()
+    total = 0.0
+    for mod, shape in set(shapes):
+        x = torch.randn(shape, device=DEV, requires_grad=True)
+        g = torch.randn(shape, device=DEV)
+        ms = cuda_ms(torch, lambda: torch.autograd.grad(mod(x), [x, *mod.parameters()], g), 10)
+        total += ms * sum(1 for m_, s_ in shapes if m_ is mod and s_ == shape)
+    return total, len(shapes)
+
+
+def gen_on(torch, seed):
+    """A generator on the card seeded with ``seed``."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _epoch_seconds(exp_dir):
     """The ``time/epoch_seconds`` records of a run's metrics log."""
     with open(os.path.join(exp_dir, "logs", "metrics.jsonl")) as f:
@@ -2143,6 +2654,11 @@ def main():
     print(f"kernels built in {seconds['build']} s", flush=True)
     print(_build.build_log.strip(), flush=True)
 
+    mods3 = (G, M, IK, RS, PB, LS, GK, D, TD)
+    tmp_dir = tempfile.TemporaryDirectory()  # the data phase's files, for phases 14 to 17
+    tmp = tmp_dir.name
+    data5 = timed(seconds, "data", data_phase, torch, mods3, tmp)
+    rpm_gather = timed(seconds, "rpm_grouping", rpm_grouping_phase, torch, mods3, data5)
     probe, rate, probe_launches = timed(seconds, "probe", probe_phase, torch, PB)
 
     cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES,
@@ -2171,7 +2687,6 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     resample_batched = timed(seconds, "resample_batched", resample_batch_phase, torch, G, RS,
                              batches3[0], rate)
-    mods3 = (G, M, IK, RS, PB, LS, GK, D, TD)
     cfg3, model3 = dcp_model(torch, D, TD, LS)
     dcp = timed(seconds, "dcp_kernels", dcp_kernels_phase, torch, mods3, cfg3, model3, batches3[0],
                 rate)
@@ -2240,18 +2755,26 @@ def main():
                             RS, PB, LN, single_its)
     demo_launches = timed(seconds, "demo", demo_phase, torch, demo, IK, RS, PB)
     dcp_train = timed(seconds, "dcp_train", dcp_train_phase, torch, mods3, cfg3, batches3)
-    with tempfile.TemporaryDirectory() as tmp:
-        data5 = timed(seconds, "data", data_phase, torch, mods3, tmp)
+    with tmp_dir:
         fmr_train, fmr_eval = timed(seconds, "fmr", fmr_phase, torch, mods3, data5, tmp)
         dcp_cli, dcp_cli_eval = timed(seconds, "dcp_cli", dcp_cli_phase, torch, mods3, data5,
                                       tmp)
+        rpm_paths, _ = timed(seconds, "rpm", rpm_phase, torch, mods3, data5, tmp, rate)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
              "dcp_graph_gather": dcp["graph_gather"], "classical_batch": classical_batch,
              "demo": demo_launches, "dcp_train": dcp_train, "fmr_train": fmr_train,
              "fmr_eval_only": fmr_eval, "dcp_cli_train": dcp_cli,
-             "dcp_cli_eval_only": dcp_cli_eval}
+             "dcp_cli_eval_only": dcp_cli_eval, **rpm_paths}
+    for k in kernels:  # the gather on RPM-Net's own ball query, its first model caller
+        if k["name"] in ("gather_fwd", "gather_bwd"):
+            t = rpm_gather[k["name"][7:]]
+            k["by_shape"]["rpm_model"] = dict(
+                shape=t["shape"], max_abs_err=t["err"], ms=t["ms"], call_ms=t["call_ms"],
+                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                bound_ms=bounds(0, t["nbytes"], rate)[1][0], bound_by="bytes",
+                **{key: t[key] for key in ("kernels_per_call", "ms_by_kernel") if key in t})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())

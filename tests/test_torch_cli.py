@@ -1,8 +1,8 @@
 """The port's command lines on the CPU (``--device cpu``): the dataset
-builder, the neighbour precompute and the depth CLI, then DCP's and FMR's
-trainers: one epoch, the resume, ``--eval_only``, ``--init_from_ckpt`` and
-``--init_from_torch``, writing the JAX CLIs' files (compare
-tests/test_cli.py).
+builder, the neighbour precompute and the depth CLI, then DCP's, FMR's and
+RPM-Net's trainers: one epoch, the resume, ``--eval_only``,
+``--init_from_ckpt`` and ``--init_from_torch``, writing the JAX CLIs' files
+(compare tests/test_cli.py).
 
 The dataset is built by the port's own ``make_dataset.main``. The
 trainers' metrics go to ``metrics.jsonl`` only: importing tensorboard
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from a_robust_registration_loss_tpu_torch.data import depth, make_dataset, objio, precompute
-from a_robust_registration_loss_tpu_torch.train import dcp, fmr
+from a_robust_registration_loss_tpu_torch.train import dcp, fmr, rpmnet
 from a_robust_registration_loss_tpu_torch.utils import logging as ulog
 from torch_port_helpers import sphere_cloud
 
@@ -26,6 +26,8 @@ COMMON = ["--device", "cpu", "--n_pairs", "3", "--train_count", "2", "--batch_si
           "--n_lines", "64", "--seed", "7"]
 DCP_SMALL = ["--emb_dims", "32", "--n_heads", "2", "--ff_dims", "32"]
 FMR_SMALL = ["--dim_k", "32", "--train_maxiter", "2", "--eval_maxiter", "2"]
+RPM_SMALL = ["--feat_dim", "16", "--num_neighbors", "8", "--num_sk_iter", "2", "--radius",
+             "0.5", "--train_reg_iter", "1", "--eval_reg_iter", "2"]
 
 
 @pytest.fixture(autouse=True)
@@ -185,3 +187,61 @@ def test_fmr_cli(data, tmp_path):
                             pth]) == dm and np.isfinite(dm)
     with pytest.raises(SystemExit):
         fmr.main(args + ["--exp_dir", exp2, "--dtype", "bfloat16"])
+
+
+def test_rpmnet_cli(data, tmp_path, capsys):
+    exp, exp2 = str(tmp_path / "exp"), str(tmp_path / "exp2")
+    args = ["--data_path", data] + COMMON + RPM_SMALL
+    model, state, hist = rpmnet.main(args + ["--exp_dir", exp, "--epochs", "1",
+                                             "--pretrain_epochs", "1"])
+    assert [h["epoch"] for h in hist] == [0] and np.isfinite(hist[0]["loss"])
+    # 2 pretraining and 2 training steps: Adam's count runs on, the schedule's restarted
+    assert int(state.adam.count) == 4 and int(state.count) == 2
+    assert {"loss_reg", "loss_intersection", "test_loss", "test_loss_chamfer"} <= set(hist[0])
+    _, state, hist = rpmnet.main(args + ["--exp_dir", exp, "--epochs", "2"])
+    assert [h["epoch"] for h in hist] == [1] and _epochs(exp) == [0, 1]
+    assert int(state.adam.count) == 6 and int(state.count) == 4
+    assert sorted(os.listdir(os.path.join(exp, "checkpoints"))) == [
+        "checkpoints.json", "ckpt-0", "ckpt-1", "ckpt-best"]
+    summary = rpmnet.main(args + ["--exp_dir", exp, "--eval_only"])
+    with open(os.path.join(exp, "eval", "Val.json")) as f:
+        assert json.load(f) == summary and set(summary) == {"loss_gt", "loss_chamfer"}
+    names = os.listdir(os.path.join(exp, "eval"))
+    assert {"1_pred_src_0.bin", "pair0_src.obj", "pair0_pred_src.obj", "pair0_tar.obj",
+            "pair0_gt_src.obj"} <= set(names)  # epoch 1, pair 0
+
+    from a_robust_registration_loss_tpu_torch.utils import load_params_from
+
+    loaded = load_params_from(exp, {"params": model.state_dict(), "opt_state": None,
+                                    "epoch": 0})
+    start, _, hist = rpmnet.main(args + ["--exp_dir", exp2, "--init_from_ckpt", exp,
+                                         "--epochs", "0"])
+    assert hist == [] and _same_params(start.state_dict(), loaded)
+    # a reference-layout .pth: the annealing net's last layer with 2 + 3 outputs
+    pth = str(tmp_path / "ref.pth")
+    ref = {k: v.clone() for k, v in loaded.items()}
+    for k in ("weights_net.postpool.6.weight", "weights_net.postpool.6.bias"):
+        ref[k] = torch.cat([ref[k], torch.randn((3,) + ref[k].shape[1:])])
+    torch.save({"state_dict": {f"module.{k}": v for k, v in ref.items()}, "epoch": 7}, pth)
+    start, _, _ = rpmnet.main(args + ["--exp_dir", str(tmp_path / "exp3"), "--init_from_torch",
+                                      pth, "--epochs", "0"])
+    assert _same_params(start.state_dict(), loaded)
+    from_torch = rpmnet.main(args + ["--exp_dir", str(tmp_path / "exp4"), "--eval_only",
+                                     "--init_from_torch", pth])
+    assert from_torch == summary
+
+    # the ablations and the data flags
+    _, _, hist = rpmnet.main(args + ["--exp_dir", str(tmp_path / "exp5"), "--epochs", "1",
+                                     "--anneal", "constant", "--no_slack", "--features",
+                                     "ppf,xyz", "--estimate_normals", "--noise_type", "jitter",
+                                     "--rot_mag", "10", "--num_points", "48"])
+    assert np.isfinite(hist[0]["loss"])
+    capsys.readouterr()
+    for flag, item in ((["--dtype", "bfloat16"], "item 6"), (["--dp", "2"], "item 7"),
+                       (["--debug_nans"], "item 8")):
+        with pytest.raises(SystemExit):
+            rpmnet.main(args + ["--exp_dir", exp2] + flag)
+        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    for bad in (["--init_from_ckpt", exp, "--init_from_torch", pth], ["--partial", "0.5"]):
+        with pytest.raises(SystemExit):
+            rpmnet.main(args + ["--exp_dir", exp2] + bad)

@@ -34,7 +34,12 @@ and the CPU path's R_ab and t_ab within 1e-4; FMR's training step with one
 batched resampler and three stage-1 launches, on the same iterates and
 lines the loss within 1e-4 relative and its gradient to the iterates
 within 5e-4 relative L2 of the CPU's plain path; the dataset cached on the
-card (and prefetched to it) equal to the streaming loader bit for bit.
+card (and prefetched to it) equal to the streaming loader bit for bit;
+RPM-Net's ball query on the card equal to the CPU's except in rows with a
+pair whose float64 d^2 lies within 1e-6 r^2 of r^2, the gather on its
+indices equal to ``gather_rows_reference`` and ``take_along_dim`` bit for
+bit with one forward launch and no backward, and a forward of the model
+launching one gather a feature pass.
 """
 
 import numpy as np
@@ -674,3 +679,50 @@ def test_device_cache_on_card(cuda_device, tmp_path):
             for a, b in zip(got, want):
                 assert all(a[k].is_cuda and torch.equal(a[k].cpu(), torch.from_numpy(b[k]))
                            for k in b)
+
+
+def _knife_edge_rows(xyz, radius):
+    """(B, N) bool: rows with a pair (other than the point itself) whose
+    float64 d^2 lies within 1e-6 r^2 of r^2."""
+    p = xyz.double()
+    d2 = ((p[:, :, None] - p[:, None]) ** 2).sum(-1)
+    edge = (d2 - radius**2).abs() <= 1e-6 * radius**2
+    edge &= ~torch.eye(p.shape[1], dtype=torch.bool)[None]
+    return edge.any(-1)
+
+
+@pytest.mark.cuda
+def test_rpm_ball_query_and_gather_on_card(cuda_device):
+    """RPM-Net's grouping at its default radius and 64 neighbours: the ball
+    query on the card against the CPU (exact off the knife edge), then the
+    gather on those indices against its plain version and take_along_dim,
+    bit for bit, one forward launch and no backward; a forward of the model
+    launches one gather a feature pass (2 an iteration)."""
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as R
+
+    B, N, ns, r = 2, 1024, 64, 0.3
+    xyz = torch.stack([torch.tensor(_cloud(N, s)) for s in range(B)])
+    normals = torch.nn.functional.normalize(xyz, dim=-1)
+    itself = torch.arange(N).expand(B, N)
+    cpu = R.query_ball_point_excl(r, ns, xyz, xyz, itself)
+    xyz_d = xyz.to(cuda_device)
+    card = R.query_ball_point_excl(r, ns, xyz_d, xyz_d, itself.to(cuda_device)).cpu()
+    edge = _knife_edge_rows(xyz, r)
+    assert torch.equal(card[~edge], cpu[~edge]) and (~edge).sum() > B * N // 2
+    table = torch.cat([xyz, normals], -1).to(cuda_device)
+    idx = card.to(cuda_device).reshape(B, N * ns)
+    before = dict(GK.launches)
+    out = GK.gather_rows(table, idx)
+    assert GK.launches["fwd"] - before["fwd"] == 1
+    assert GK.launches["bwd_sum"] == before["bwd_sum"]
+    assert torch.equal(out, GK.gather_rows_reference(table, idx))
+    assert torch.equal(out, torch.take_along_dim(table, idx[..., None], 1))
+
+    model = R.RPMNetEarlyFusion(R.RPMNetConfig(feat_dim=32)).to(cuda_device)
+    before = dict(GK.launches)
+    transforms, _ = model(xyz_d, normals.to(cuda_device), xyz_d, normals.to(cuda_device),
+                          num_iter=2)
+    sum(t.sum() for t in transforms).backward()
+    assert GK.launches["fwd"] - before["fwd"] == 4
+    assert GK.launches["bwd_sum"] == before["bwd_sum"] and GK.launches["bwd_sort"] == before[
+        "bwd_sort"]

@@ -72,6 +72,8 @@ def test_importing_the_port_loads_no_jax():
             "import a_robust_registration_loss_tpu_torch.data.precompute\n"
             "import a_robust_registration_loss_tpu_torch.data.depth\n"
             "import a_robust_registration_loss_tpu_torch.native.objio_native\n"
+            "import a_robust_registration_loss_tpu_torch.models.rpmnet\n"
+            "import a_robust_registration_loss_tpu_torch.train.rpmnet\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'flax', 'a_robust_registration_loss_tpu')]\n"
             "assert not bad, bad\n")
@@ -207,3 +209,24 @@ def test_evaluate_and_gather_refuse_a_missing_card(monkeypatch, tmp_path):
     assert GK.gather_rows(table, idx).shape == (1, 2, 3)
     with pytest.raises(ValueError, match="unsupported device"):
         GK.gather_rows(table.to("meta"), idx.to("meta"))
+
+
+def test_rpmnet_refuses_a_missing_card(monkeypatch, tmp_path):
+    """RPM-Net's training, evaluation and CLI run on the card unless asked
+    for the CPU; its model takes CPU tensors (the gather's plain version)."""
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as R
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+    from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fit = H.FitConfig(epochs=1, exp_dir=str(tmp_path), log_tensorboard=False)
+    cfg = TR.RPMTrainConfig(model=R.RPMNetConfig(feat_dim=16, num_neighbors=4), fit=fit)
+    for call in (lambda: TR.train(cfg, []), lambda: TR.init_model(cfg, 0),
+                 lambda: TR.evaluate(cfg, {}, [], str(tmp_path)),
+                 lambda: TR.main(["--data_path", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    m = TR.init_model(cfg, 0, device="cpu")
+    x = torch.randn(1, 16, 3)
+    transforms, _ = m(x, x, x, x, num_iter=1)
+    assert transforms[0].shape == (1, 3, 4) and transforms[0].device.type == "cpu"

@@ -98,3 +98,19 @@ def perturbed(params, seed, scale=0.1):
     return jax.tree_util.tree_map(
         lambda p: np.asarray(p) + scale * rng.standard_normal(p.shape).astype(np.float32),
         params)
+
+
+def port_indices_on_jax_inputs(port_fn):
+    """A JAX-side stand-in for a ball query that returns the port's indices
+    on the JAX side's own inputs (a host callback, so it also runs under
+    ``jit`` and ``grad``)."""
+    def fn(radius, nsample, *arrays):
+        B, S = arrays[1].shape[:2]
+
+        def host(*a):
+            out = port_fn(radius, nsample, *(torch.from_numpy(np.array(x)) for x in a))
+            return out.numpy().astype(np.int32)
+
+        return jax.pure_callback(host, jax.ShapeDtypeStruct((B, S, nsample), jnp.int32),
+                                 *arrays)
+    return fn
