@@ -693,14 +693,16 @@ def resample_phase(torch, G, RS, data, gen, rate):
     return resample_entry(torch, RS, "resample_sample_and_hit", u4, r, c, fv, rate, 50, checked)
 
 
-def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
+def profile_phase(torch, one, n, what, ms_per, units=1, strict=True, label=None):
     """Where the time of ``n`` calls of ``one`` goes, under torch.profiler;
     a call covers ``units`` steps, iterations or batches (``what``). Prints
     the kernels, the device time and its share of the unprofiled ``ms_per``,
     all per unit, and the costliest device operations. Fails if a call
     copies between host and device or waits for the device, unless not
-    ``strict``: then it counts them. Returns those numbers per unit (None
-    when the tracer recorded no device activity)."""
+    ``strict``: then it counts them. With a ``label``, also the device time
+    of the spans of that name and of their backward (``labelled_ms``).
+    Returns those numbers per unit (None when the tracer recorded no device
+    activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -719,7 +721,7 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
     by_name = {}
     for e in events:
         # the annotation also shows on the device, spanning its kernels
-        if e.device_type == DeviceType.CUDA and e.name != "chip_smoke.call":
+        if e.device_type == DeviceType.CUDA and e.name not in ("chip_smoke.call", label):
             tot, calls = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.time_range.elapsed_us(), calls + 1)
     copies = sum(c for k, (_, c) in by_name.items()
@@ -745,9 +747,77 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True):
     if strict:
         check(copies == 0, f"{copies} host<->device copies in {n} {plural}")
         check(not any(syncs.values()), f"the {what} waits for the device: {syncs}")
-    return dict(kernels=kernels / n, busy_ms=busy, busy_share=busy / ms_per, copies=copies,
-                htod=htod,
-                syncs=sum(syncs.values())) if by_name else None
+    if not by_name:
+        return None
+    out = dict(kernels=kernels / n, busy_ms=busy, busy_share=busy / ms_per, copies=copies,
+               htod=htod, syncs=sum(syncs.values()))
+    if label is not None:
+        out["labelled_ms"] = labelled_ms(events, label) / n
+    return out
+
+
+def labelled_events(events, label):
+    """A trace's host events inside record_function spans named ``label``,
+    and those of the backward nodes that the operations of those spans
+    made (matched by sequence number and thread, as the profiler's own
+    forward-backward correlation does), the engine's reduction of a
+    node's gradients to its inputs' shapes included."""
+    from torch.autograd import DeviceType
+
+    def under(e, pred):
+        while e is not None:
+            if pred(e):
+                return e
+            e = e.cpu_parent
+        return None
+
+    def node_key(p):
+        """(sequence number, forward thread) of the backward node whose
+        span p is, or whose engine span (the node and the reduction of its
+        outputs) p is."""
+        if p.scope == 1:
+            return p.sequence_nr, p.fwd_thread
+        if p.name.startswith("autograd::engine::evaluate_function"):
+            for c in p.cpu_children:
+                if c.scope == 1:
+                    return c.sequence_nr, c.fwd_thread
+        return None
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    fwd = {(e.sequence_nr, e.thread) for e in cpu
+           if e.sequence_nr >= 0 and under(e, lambda p: p.name == label)}
+    return [e for e in cpu if under(e, lambda p: p.name == label or node_key(p) in fwd)]
+
+
+def labelled_ms(events, label):
+    """The device ms of the kernels that ``labelled_events`` launched."""
+    return sum(k.duration for e in labelled_events(events, label) for k in e.kernels) / 1e3
+
+
+class _Spans:
+    """Wraps every forward of ``model``'s modules of type ``cls`` in a
+    record_function span named ``label`` while entered."""
+
+    def __init__(self, model, cls, label):
+        self.mods, self.label, self.open = [m for m in model.modules() if isinstance(m, cls)], \
+            label, []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        def enter(mod, args):
+            self.open.append(record_function(self.label).__enter__())
+
+        def leave(mod, args, out):
+            self.open.pop().__exit__(None, None, None)
+
+        self.hooks = [h for m in self.mods for h in (m.register_forward_pre_hook(enter),
+                                                     m.register_forward_hook(leave))]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
 
 
 def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
@@ -2223,10 +2293,12 @@ def rpm_parity(torch, mods, cfg, model, batch, gen):
     parameter: within 5e-4 relative L2 of the CPU's or, where the Kabsch
     SVD amplifies rounding, no farther from the network's float64 backward
     (on the CPU) than twice the CPU's fp32 distance to it. Each side's own
-    forward (its transforms, then its loss) is printed beside them: fp32
-    rounding moves the transforms, which moves a few stage-1 hits. Prints
-    the Kabsch covariances' singular values and the SVD gradient's largest
-    1 / (s_i^2 - s_j^2). Returns the relative errors."""
+    forward: the transforms within 1e-4 and the Sinkhorn matrices within
+    1e-6 of the CPU's, and the loss on them within 2e-3 relative (fp32
+    rounding moves the transforms, which moves a few stage-1 hits). The
+    card's resampler and stage 1 on the inputs this step gave them:
+    ``rpm_kernels``. Prints the Kabsch covariances' singular values and the
+    SVD gradient's largest 1 / (s_i^2 - s_j^2). Returns the errors."""
     from a_robust_registration_loss_tpu_torch.models import rpmnet as RM
     from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
 
@@ -2270,6 +2342,8 @@ def rpm_parity(torch, mods, cfg, model, batch, gen):
         torch.linalg.svd = real_svd
     idx = [i.cpu() for i in idx]
     total_k, up_k, counts_k, lines = loss(outs_k, batch)
+    rpm_kernels(torch, mods, cfg, batch, [o.detach() for o in outs_k[:n_iter]], u4, lines,
+                counts_k)
     lines = lines.cpu()
     total_c, up_c, counts_c, _ = loss([o.detach().cpu() for o in outs_k], cpu_batch, lines)
     loss_err = abs(total_k - total_c) / abs(total_c)
@@ -2305,6 +2379,7 @@ def rpm_parity(torch, mods, cfg, model, batch, gen):
     # each side's own forward and loss (the same lines and ball indices)
     own_c, _, own_counts, _ = loss(outs_c, cpu_batch, lines)
     own_hits = [int((a != b).sum()) for a, b in zip(counts_k, own_counts)]
+    own_err = abs(total_k - own_c) / abs(own_c)
     sv = torch.stack(svals)  # (iterations, B, 3)
     gaps = torch.stack([sv[..., 0] ** 2 - sv[..., 1] ** 2, sv[..., 1] ** 2 - sv[..., 2] ** 2])
     print(f"RPM-Net on the card vs the CPU's plain path (B={B5} N={NP5} feat_dim "
@@ -2317,20 +2392,65 @@ def rpm_parity(torch, mods, cfg, model, batch, gen):
           f"{g['card'].numel()} parameter values rel L2 {e_kc:.3g} (card vs CPU), {e_k64:.3g} "
           f"(card vs float64), {e_c64:.3g} (CPU vs float64); each side's own forward: "
           f"transforms within {out_err:.3g}, Sinkhorn matrices within {perm_err:.3g}, loss "
-          f"{own_c:.7f} (rel {abs(total_k - own_c) / abs(own_c):.3g}), {own_hits} stage-1 counts "
+          f"{own_c:.7f} (rel {own_err:.3g}), {own_hits} stage-1 counts "
           f"differ; Kabsch covariances' singular values by iteration "
           f"{np.round(sv.numpy(), 6).tolist()}, the SVD gradient's largest 1 / (s_i^2 - "
           f"s_j^2) {float(1 / gaps.abs().min()):.4g}", flush=True)
     check(loss_err <= 1e-4, f"RPM-Net loss on the card's outputs: {total_k} vs the CPU's "
           f"{total_c}")
+    check(out_err <= 1e-4, f"RPM-Net transforms: the card's within {out_err} of the CPU's")
+    check(perm_err <= 1e-6, f"RPM-Net Sinkhorn matrices: the card's within {perm_err} of the "
+          "CPU's")
+    check(own_err <= 2e-3, f"RPM-Net loss on each side's own forward: rel {own_err}")
     check(counts_equal, "RPM-Net parity: stage-1 counts differ from the CPU's")
     check(up_err <= 5e-4, f"RPM-Net loss gradient at the network's outputs: rel L2 {up_err}")
     check(e_kc <= 5e-4 or e_k64 <= 2 * e_c64,
           f"RPM-Net network gradient: card vs CPU {e_kc}, card vs float64 {e_k64}, CPU vs "
           f"float64 {e_c64}")
     return dict(loss_rel=loss_err, upstream_rel=up_err, grad_rel=e_kc, grad_rel_f64=e_k64,
-                cpu_rel_f64=e_c64, transforms_abs=out_err, own_loss_rel=abs(total_k - own_c) /
-                abs(own_c), own_counts_differ=own_hits)
+                cpu_rel_f64=e_c64, transforms_abs=out_err, perms_abs=perm_err,
+                own_loss_rel=own_err, own_counts_differ=own_hits)
+
+
+def rpm_kernels(torch, mods, cfg, batch, transforms, u4, lines, counts_k):
+    """RPM-Net's kernels on the inputs its loss gave them in one card step:
+    the batched resampler (``u4``, the full diagonal, the source moved by
+    iteration 0's transform) against its plain version bit for bit, the
+    loss's ``lines`` equal to those the plain version's candidates give,
+    then stage 1 on each iteration's moved source against its plain version
+    bit for bit, its counts equal to the loss's ``counts_k``."""
+    G, M, IK, RS, _, LS = mods[:6]
+    src, tar = batch["points_src_sample"][..., :3], batch["points_tar_sample"]
+    box, c = batch["tar_box"], batch["centers"]
+    r = torch.linalg.vector_norm(box[:, 0] - box[:, -1], dim=-1)
+    fv = RS.prep_faces(G.bbox_face_vertices(LS.se3.rt_transform(transforms[0], src)),
+                       G.bbox_face_vertices(tar))
+    _, h1, h2, acc, n = resample_check(torch, RS, u4, r, c, fv, "RPM-Net")
+    cand, ok = RS.sample_and_hit_reference(u4, r, c, fv)
+    check(torch.equal(LS.LN._fill_first_n_gather(cand, ok, L_RPM), lines),
+          "RPM-Net's lines differ from those of the resampler's plain version")
+    n1, n2 = (LS._flat_neis(batch[k]) for k in
+              ("points_based_neighs_src", "points_based_neighs_tar"))
+    hits = []
+    for i, g in enumerate(transforms):
+        R_row, t = g[:, :3, :3].transpose(-1, -2), g[:, :3, 3]
+        n1_t = (n1.reshape(B5, -1, 3) @ R_row + t[:, None, :]).reshape(n1.shape)
+        deltas = (M.neighborhood_delta(n1_t), M.neighborhood_delta(n2))
+        got = IK.stage1((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+        ref = IK.stage1_reference((n1_t, n2), lines, deltas, cfg.loss.kmax, **PTS)
+        for a, b, what in zip(got, ref, ("count", "slot_idx", "d2", "recon", "slot_pts")):
+            check((a is None and b is None) or torch.equal(a, b),
+                  f"stage1 at RPM-Net's iteration {i}: {what} differs from the plain version")
+        count = torch.cat([got[0][..., 0, :], got[0][..., 1, :]], dim=-1).cpu().numpy()
+        check(np.array_equal(count, counts_k[i]),
+              f"stage1 at RPM-Net's iteration {i}: counts differ from the loss's")
+        hits.append(int(got[0].sum()))
+    print(f"RPM-Net's kernels on its own step: the resampler (B={B5} C={u4.shape[-1]}, radius "
+          f"the full diagonal, the source moved by iteration 0; mesh 1 hit by {h1 / n:.5f}, "
+          f"mesh 2 by {h2 / n:.5f}, accepted {acc / n:.5f}) equals its plain version bit for "
+          f"bit and gives the loss's lines; stage 1 on each of the {len(transforms)} "
+          f"iterations (B={B5} F={n1.shape[1]} L={lines.shape[1]}, hits {hits}) equals its "
+          "plain version bit for bit and gives the loss's counts", flush=True)
 
 
 def rpm_grouping_phase(torch, mods, data):
@@ -2386,6 +2506,7 @@ def rpm_phase(torch, mods, data, tmp, rate):
     step and of its eval-only run, the step's measured numbers)."""
     from a_robust_registration_loss_tpu_torch.data import dataset as DS
     from a_robust_registration_loss_tpu_torch.models import rpmnet as RM
+    from a_robust_registration_loss_tpu_torch.models.common import TorchGroupNorm
     from a_robust_registration_loss_tpu_torch.train import harness as H
     from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
     from a_robust_registration_loss_tpu_torch.utils import CheckPointManager, load_params_from
@@ -2547,13 +2668,18 @@ def rpm_phase(torch, mods, data, tmp, rate):
           f"peak memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
           f"{base / 2**20:.1f} MiB held before the step)", flush=True)
     st["it"] = iter(cache)  # the epoch's index copy before the window
-    prof = profile_phase(torch, one, PROFILED3, "step", ms, strict=False)
+    with _Spans(model, TorchGroupNorm, "rpm.group_norm"):
+        prof = profile_phase(torch, one, PROFILED3, "step", ms, strict=False,
+                             label="rpm.group_norm")
     check(prof is not None and prof["htod"] == 0,
           f"RPM-Net steps fed from the cache copied to the device: {prof}")
     gn_ms, gn_calls = groupnorm_ms(torch, model, one)
-    print(f"RPM-Net's GroupNorm passes: {gn_calls} a step, forward and backward {gn_ms:.4f} ms "
-          f"a step when each is timed alone at its shape = {gn_ms / prof['busy_ms']:.1%} of "
-          f"the step's {prof['busy_ms']:.4f} ms of device time", flush=True)
+    gn_traced, busy = prof["labelled_ms"], prof["busy_ms"]
+    check(gn_traced > 0, "the step's trace holds no GroupNorm kernel")
+    print(f"RPM-Net's GroupNorm passes: {gn_calls} a step; forward and backward in the "
+          f"profiled steps' own trace {gn_traced:.4f} ms a step = {gn_traced / busy:.1%} of "
+          f"the step's {busy:.4f} ms of device time; each timed alone at its shape "
+          f"{gn_ms:.4f} ms a step = {gn_ms / busy:.1%}", flush=True)
     # the step's library calls that may wait for the card, alone
     H3 = torch.eye(3, device=DEV).expand(B5, 3, 3) + 0.1
     for name, fn in (("svd", torch.linalg.svd), ("det", torch.linalg.det)):
@@ -2576,7 +2702,7 @@ def rpm_phase(torch, mods, data, tmp, rate):
     print("RPM-Net NaN batch skipped, model and optimiser state unchanged bit for bit",
           flush=True)
     return paths, dict(parity, ms_step=ms, peak_mib=peak / 2**20, profile=prof,
-                       epoch_seconds=secs, groupnorm_ms=gn_ms)
+                       epoch_seconds=secs, groupnorm_ms=gn_ms, groupnorm_traced_ms=gn_traced)
 
 
 def groupnorm_ms(torch, model, step):

@@ -296,3 +296,36 @@ def test_config_refuses_what_is_not_ported():
         R.RPMNetConfig(features=("ppf", "fpfh"))
     with pytest.raises(ValueError, match="anneal"):
         R.RPMNetConfig(anneal="fixed")
+
+
+def test_groupnorm_spans_find_forward_and_backward():
+    """chip_smoke.py reads the share of RPM-Net's step that its GroupNorm
+    passes take from the step's own trace: the host events it attributes
+    to them are the passes' operations and the backward nodes those made,
+    and nothing of the layers around them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from a_robust_registration_loss_tpu_torch.models.common import TorchGroupNorm
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16), TorchGroupNorm(4, 16),
+                                torch.nn.ReLU(), torch.nn.Linear(16, 4))
+    x = torch.randn(2, 5, 8)
+    with chip_smoke._Spans(model, TorchGroupNorm, "gn"), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        model(x).sum().backward()
+    found = chip_smoke.labelled_events(prof.events(), "gn")
+    nodes = sorted(e.name.split(": ")[-1] for e in found if e.scope == 1)
+    ops = {e.name for e in found if e.scope != 1}
+    assert nodes == sorted(["ViewBackward0", "MeanBackward1", "SubBackward0", "PowBackward0",
+                            "MeanBackward1", "AddBackward0", "SubBackward0", "RsqrtBackward0",
+                            "MulBackward0", "ViewBackward0", "MulBackward0", "AddBackward0"])
+    assert {"aten::mean", "aten::rsqrt", "aten::pow"} <= ops
+    # the engine's sums of broadcast gradients, outside their nodes: to the
+    # shapes of the two means, of the reciprocal deviation, of the weight
+    # and of the bias
+    assert sum(e.name == "aten::sum" and e.cpu_parent.name.startswith(
+        "autograd::engine::evaluate_function") for e in found) == 5
+    assert not ops & {"aten::linear", "aten::addmm", "aten::relu"}
+    assert chip_smoke.labelled_ms(prof.events(), "gn") == 0.0  # no device kernel on the CPU
