@@ -5,6 +5,12 @@ path (ops/metric.py, ops/geometry.py, se3/se3.py): a rounded rigid
 transform moves stage-1 labels and kNN/FPS orderings. The CUDA counterpart
 of that pin is TF32 off for matmuls and cuDNN, set here once for the
 process when the port is imported.
+
+The opt-in bf16 mode (the models' ``dtype="bfloat16"``) multiplies bf16
+operands on the tensor cores. cuBLAS may then reduce the partial sums of a
+split-K product in bf16; that is switched off here too, so every bf16
+product accumulates in fp32 and is rounded to bf16 once, as the TPU's
+matrix unit does and as the JAX package's bf16 products are specified.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def sqrt_rn(x):

@@ -9,12 +9,79 @@ package's HIGHEST precision.
 
 Singular vectors are defined up to sign, and cuSOLVER, LAPACK and XLA pick
 differently: only the rotation R = V S U^T is comparable between them.
+
+Mixed precision (a config's ``dtype="bfloat16"``) follows the JAX package's
+placement, which is flax's: a network's activations carry the compute
+dtype, set by one cast where the network starts (``lower``); each
+product (``dense``, ``Linear``, the models' pointwise layers) casts its
+fp32 weight to the activation's dtype, multiplies in it and then adds the
+bias as an operation of its own, two roundings as ``nn.Dense(dtype=bf16)``
+has; the norms take fp32 statistics and cast their result back once to the
+input's dtype. Parameters stay fp32, and autograd brings their gradients
+back to fp32 through the casts. ``torch.autocast`` is not used: it returns
+the norms in fp32 and has no per-call fp32 pin.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """A config's ``dtype`` ("float32" or "bfloat16") as a torch dtype;
+    any other name raises."""
+    if name not in DTYPES:
+        raise ValueError(f"dtype {name!r} is neither 'float32' nor 'bfloat16'")
+    return DTYPES[name]
+
+
+def lower(x, dtype: torch.dtype):
+    """x cast to the compute dtype ``dtype`` where that is bf16; a float32
+    compute dtype leaves x as it is (a float64 copy of a model, the tests'
+    reference, stays float64)."""
+    return x.to(dtype) if dtype == torch.bfloat16 else x
+
+
+def upcast(x):
+    """A bf16 x back to fp32; any other x as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _cast_back(y, dtype):
+    """y in ``dtype``; no operation at all where it is already (a no-op
+    ``to`` would still show in a trace, under the next node's sequence
+    number)."""
+    return y if y.dtype == dtype else y.to(dtype)
+
+
+def dense(x, weight, bias=None):
+    """x @ weight^T (+ bias) in x's dtype, flax ``nn.Dense``'s arithmetic:
+    outside bf16 one ``F.linear``; in bf16 the fp32 weight is cast to bf16,
+    the product is rounded to bf16 (accumulated in fp32: ``_device.py``),
+    and the bias, cast to bf16, is added after it."""
+    if x.dtype != torch.bfloat16:
+        return F.linear(x, weight, bias)
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def attention_scale(d_k: int, dtype: torch.dtype) -> float:
+    """sqrt(d_k) rounded to ``dtype``, the divisor of the attention and
+    correspondence scores (``jnp.sqrt(jnp.asarray(d_k, dtype))``): in bf16
+    11.3125 for d_k = 128 and 22.625 for 512."""
+    return float(torch.tensor(float(d_k), dtype=dtype).sqrt())
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (the same parameters) whose product runs in its input's
+    dtype: ``dense``."""
+
+    def forward(self, x):
+        return dense(x, self.weight, self.bias)
 
 
 def quat2mat(quat):
@@ -71,7 +138,8 @@ def weighted_kabsch(a, b, weights):
 class TorchLayerNorm(nn.Module):
     """The reference transformer's LayerNorm: a * (x - mean) / (std + eps)
     + b with the unbiased std and eps added to the std, not the variance.
-    Parameters ``a_2`` and ``b_2``, the reference's names."""
+    Parameters ``a_2`` and ``b_2``, the reference's names. Computed in fp32,
+    the result cast back to x's dtype."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -81,9 +149,11 @@ class TorchLayerNorm(nn.Module):
 
     def forward(self, x):
         d = x.shape[-1]
-        mean = x.mean(dim=-1, keepdim=True)
-        var = ((x - mean) ** 2).sum(dim=-1, keepdim=True) / (d - 1)
-        return self.a_2 * (x - mean) / (torch.sqrt(var) + self.eps) + self.b_2
+        x32 = upcast(x)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 - mean) ** 2).sum(dim=-1, keepdim=True) / (d - 1)
+        return _cast_back(self.a_2 * (x32 - mean) / (torch.sqrt(var) + self.eps) + self.b_2,
+                          x.dtype)
 
 
 class TorchGroupNorm(nn.Module):
@@ -91,7 +161,9 @@ class TorchGroupNorm(nn.Module):
     features: (B, N, C), (B, N, k, C) or pooled (B, C). The statistics of a
     group run over all its positions and channels of one sample, as
     ``nn.GroupNorm`` takes them on channels-first input. Parameters
-    ``weight`` and ``bias``."""
+    ``weight`` and ``bias``. As flax's ``GroupNorm``: statistics in fp32,
+    y = (x - mean) * (rsqrt(var + eps) * weight) + bias in fp32, cast once
+    to x's dtype."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -105,8 +177,10 @@ class TorchGroupNorm(nn.Module):
 
     def forward(self, x):
         B, C = x.shape[0], x.shape[-1]
-        g = x.reshape(B, -1, self.num_groups, C // self.num_groups)
+        G = self.num_groups
+        g = upcast(x).reshape(B, -1, G, C // G)
         mean = g.mean(dim=(1, 3), keepdim=True)
         var = ((g - mean) ** 2).mean(dim=(1, 3), keepdim=True)
-        y = (g - mean) * torch.rsqrt(var + self.eps)
-        return y.reshape(x.shape) * self.weight + self.bias
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (g - mean) * mul + self.bias.reshape(G, C // G)
+        return _cast_back(y.reshape(x.shape), x.dtype)

@@ -25,8 +25,18 @@ reference checkpoint is a plain ``load_state_dict``;
 tree into the same names.
 
 The attention and the other large products are ``torch.matmul`` and
-``torch.softmax`` in fp32, as they are plain XLA products in the JAX
-package; the graph gather is plain indexing, as it is ``jnp.take`` there.
+``torch.softmax``, as they are plain XLA products in the JAX package; the
+graph gather is plain indexing, as it is ``jnp.take`` there.
+
+Mixed precision (``DCPConfig.dtype="bfloat16"``), as the JAX package places
+it: the embedding nets, the transformer and the SVD head's score product
+run in bf16, with the residual stream in bf16 (the LayerNorms cast back to
+it); the kNN graph is chosen on the fp32 points; attention and score
+products are divided by sqrt(d_k) rounded to bf16, their softmax runs in
+fp32 and the attention weights go back to bf16 for ``attn @ v``; from the
+SVD head's softmax on, and the MLP head's quaternion and translation
+layers, everything is fp32. R and t come back fp32, and the parameters
+stay fp32 (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -40,16 +50,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from a_robust_registration_loss_tpu_torch.models.common import (
+    Linear,
     TorchGroupNorm,
     TorchLayerNorm,
+    attention_scale,
+    compute_dtype,
+    dense,
+    lower,
     quat2mat,
     svd_orientation,
+    upcast,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class DCPConfig:
-    """Mirrors the reference CLI flags. fp32 only."""
+    """Mirrors the reference CLI flags. ``dtype``: the compute dtype,
+    "float32" or the opt-in "bfloat16" (module docstring)."""
 
     emb_nn: Literal["pointnet", "dgcnn"] = "dgcnn"
     pointer: Literal["identity", "transformer"] = "transformer"
@@ -60,12 +77,17 @@ class DCPConfig:
     ff_dims: int = 1024
     dgcnn_k: int = 20
     cycle: bool = False
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        compute_dtype(self.dtype)
 
 
 class Pointwise(nn.Module):
     """A bias-free 1x1 convolution on channels-last features: a linear map
     over the trailing axis whose ``weight`` keeps the convolution's shape
-    (out, in, 1) or (out, in, 1, 1), the reference checkpoints' own."""
+    (out, in, 1) or (out, in, 1, 1), the reference checkpoints' own. The
+    product runs in x's dtype (``dense``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_dims: int):
         super().__init__()
@@ -74,14 +96,16 @@ class Pointwise(nn.Module):
         self.weight = nn.Parameter(w)
 
     def forward(self, x):
-        return F.linear(x, self.weight.flatten(1))
+        return dense(x, self.weight.flatten(1))
 
 
 class _ConvStack(nn.Module):
-    """conv1..conv5 and bn1..bn5 of an embedding net."""
+    """conv1..conv5 and bn1..bn5 of an embedding net, computing in
+    ``dtype``."""
 
-    def __init__(self, layers, kernel_dims: int):
+    def __init__(self, layers, kernel_dims: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         for i, (cin, cout, groups) in enumerate(layers, start=1):
             setattr(self, f"conv{i}", Pointwise(cin, cout, kernel_dims))
             setattr(self, f"bn{i}", TorchGroupNorm(groups, cout))
@@ -91,11 +115,12 @@ class _ConvStack(nn.Module):
 
 
 class PointNetEmb(_ConvStack):
-    def __init__(self, emb_dims: int = 512):
+    def __init__(self, emb_dims: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__([(3, 64, 8), (64, 64, 8), (64, 64, 8), (64, 128, 16),
-                          (128, emb_dims, 16)], kernel_dims=1)
+                          (128, emb_dims, 16)], kernel_dims=1, dtype=dtype)
 
-    def forward(self, x):  # (B, N, 3) -> (B, N, emb)
+    def forward(self, x):  # (B, N, 3) -> (B, N, emb) in the compute dtype
+        x = lower(x, self.dtype)
         for i in range(1, 6):
             x = self.layer(i, x)
         return x
@@ -124,15 +149,17 @@ def knn_graph_feature(x, k: int):
 
 
 class DGCNNEmb(_ConvStack):
-    def __init__(self, emb_dims: int = 512, k: int = 20):
+    def __init__(self, emb_dims: int = 512, k: int = 20, dtype: torch.dtype = torch.float32):
         super().__init__([(6, 64, 8), (64, 64, 8), (64, 128, 8), (128, 256, 16),
-                          (512, emb_dims, 16)], kernel_dims=2)
+                          (512, emb_dims, 16)], kernel_dims=2, dtype=dtype)
         self.k = k
 
     def forward(self, x):  # (B, N, 3) -> (B, N, emb)
+        # the graph is chosen on the fp32 points whatever the compute dtype
         return self.embed_graph(knn_graph_feature(x, self.k))
 
     def embed_graph(self, h):  # edge features (B, N, k, 6) -> (B, N, emb)
+        h = lower(h, self.dtype)
         outs = []
         for i in range(1, 5):
             h = self.layer(i, h)
@@ -147,14 +174,15 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.n_heads = n_heads
         self.d_k = d_model // n_heads
-        self.linears = nn.ModuleList([nn.Linear(d_model, d_model) for _ in range(4)])
+        self.linears = nn.ModuleList([Linear(d_model, d_model) for _ in range(4)])
 
     def forward(self, q, k, v):
         B = q.shape[0]
         q, k, v = (lin(x).reshape(B, x.shape[1], self.n_heads, self.d_k).transpose(1, 2)
                    for lin, x in zip(self.linears, (q, k, v)))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(self.d_k)
-        out = torch.softmax(scores, dim=-1) @ v
+        scores = q @ k.transpose(-1, -2) / attention_scale(self.d_k, q.dtype)
+        # the softmax in fp32, its weights back in the compute dtype
+        out = torch.softmax(upcast(scores), dim=-1).to(v.dtype) @ v
         out = out.transpose(1, 2).reshape(B, -1, self.n_heads * self.d_k)
         return self.linears[3](out)
 
@@ -165,8 +193,8 @@ class FeedForward(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int):
         super().__init__()
-        self.w_1 = nn.Linear(d_model, d_ff)
-        self.w_2 = nn.Linear(d_ff, d_model)
+        self.w_1 = Linear(d_model, d_ff)
+        self.w_2 = Linear(d_ff, d_model)
 
     def forward(self, x):
         return self.w_2(F.relu(self.w_1(x)))
@@ -261,10 +289,11 @@ class SVDHead(nn.Module):
     def correlation(self, src_emb, tgt_emb, src, tgt):
         """(H (B, 3, 3), src_mean, corr_mean): the cross-covariance of the
         source and its soft correspondences, which the SVD takes. The
-        gradient through the SVD needs H's singular values apart."""
+        gradient through the SVD needs H's singular values apart. The score
+        product runs in the embeddings' dtype; from the softmax on, fp32."""
         d_k = src_emb.shape[-1]
-        scores = src_emb @ tgt_emb.transpose(-1, -2) / math.sqrt(d_k)
-        scores = torch.softmax(scores, dim=2)  # over the target points
+        scores = src_emb @ tgt_emb.transpose(-1, -2) / attention_scale(d_k, src_emb.dtype)
+        scores = torch.softmax(upcast(scores), dim=2)  # over the target points
         src_corr = scores @ tgt  # (B, N, 3)
         src_mean, corr_mean = src.mean(dim=1), src_corr.mean(dim=1)
         src_c = src - src_mean[:, None]
@@ -279,21 +308,22 @@ class SVDHead(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """Global-pool quaternion head."""
+    """Global-pool quaternion head: its MLP in the embeddings' dtype, the
+    quaternion and translation layers in fp32."""
 
     def __init__(self, cfg: DCPConfig):
         super().__init__()
         d = cfg.emb_dims
         layers, width = [], 2 * d
         for out in (d // 2, d // 4, d // 8):
-            layers += [nn.Linear(width, out), TorchGroupNorm(8, out), nn.ReLU()]
+            layers += [Linear(width, out), TorchGroupNorm(8, out), nn.ReLU()]
             width = out
         self.nn = nn.Sequential(*layers)
         self.proj_rot = nn.Linear(width, 4)
         self.proj_trans = nn.Linear(width, 3)
 
     def forward(self, src_emb, tgt_emb, src, tgt):
-        e = self.nn(torch.cat([src_emb, tgt_emb], dim=-1).amax(dim=1))  # (B, d/8)
+        e = upcast(self.nn(torch.cat([src_emb, tgt_emb], dim=-1).amax(dim=1)))  # (B, d/8)
         quat = self.proj_rot(e)
         quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
         return quat2mat(quat), self.proj_trans(e)
@@ -305,10 +335,11 @@ class DCP(nn.Module):
     def __init__(self, cfg: DCPConfig = DCPConfig()):
         super().__init__()
         self.cfg = cfg
+        dtype = compute_dtype(cfg.dtype)
         if cfg.emb_nn == "pointnet":
-            self.emb_nn = PointNetEmb(cfg.emb_dims)
+            self.emb_nn = PointNetEmb(cfg.emb_dims, dtype)
         else:
-            self.emb_nn = DGCNNEmb(cfg.emb_dims, cfg.dgcnn_k)
+            self.emb_nn = DGCNNEmb(cfg.emb_dims, cfg.dgcnn_k, dtype)
         self.pointer = TransformerPointer(cfg) if cfg.pointer == "transformer" else None
         self.head = SVDHead(cfg) if cfg.head == "svd" else MLPHead(cfg)
 

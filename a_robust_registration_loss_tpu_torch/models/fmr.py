@@ -31,9 +31,17 @@ Parameter names and shapes are the reference PyTorch FMR's
 ``decoder.fc4.bias``, ``decoder.bn3.weight``, ``dt``), so a reference
 checkpoint is a plain ``load_state_dict``; a ``dt`` of any shape of 6
 values is read as (1, 6). ``models/transplant.py:fmr_from_flax`` brings the
-JAX package's tree into these names. fp32 only (TF32 is off,
-``_device.py``): the Jacobian subtracts near-equal features, so the
-rounding of the features is amplified about 1 / dt = 100 times.
+JAX package's tree into these names. TF32 is off (``_device.py``): the
+Jacobian subtracts near-equal features, so the rounding of the features is
+amplified about 1 / dt = 100 times.
+
+Mixed precision (``FMRConfig.dtype="bfloat16"``), as the JAX package places
+it: bf16 covers only the autoencoder branch, the ``f1_full`` encoder pass
+and the decoder (its last layer cast to fp32 before tanh * 10). Every
+encoder pass that feeds the IC solver (f0, the Jacobian's B * 6 clouds,
+the iterations' residuals) is pinned to fp32 by the encoder's per-call
+``dtype``, and the pooled features come back fp32 either way. The
+parameters stay fp32.
 
 Convention: p1 = source, p0 = target; g maps p1 onto p0.
 """
@@ -46,7 +54,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from a_robust_registration_loss_tpu_torch.models.common import TorchGroupNorm
+from a_robust_registration_loss_tpu_torch.models.common import (
+    Linear,
+    TorchGroupNorm,
+    compute_dtype,
+    dense,
+    lower,
+    upcast,
+)
 from a_robust_registration_loss_tpu_torch.models.dcp import Pointwise
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.se3 import se3
@@ -59,25 +74,24 @@ class FMRConfig:
     maxiter: int = 5         # train default (eval uses 10)
     xtol: float = 1.0e-7
     use_decoder: bool = True
+    # the autoencoder branch's compute dtype (module docstring)
     dtype: str = "float32"
 
     def __post_init__(self):
-        if self.dtype != "float32":
-            raise ValueError(f"FMRConfig: dtype {self.dtype!r} is not ported; only float32 "
-                             "(mixed precision is ROADMAP.md Queue 1 item 6)")
+        compute_dtype(self.dtype)
 
 
 class PointwiseBias(Pointwise):
     """A 1x1 ``Conv1d`` (or, with ``kernel_dims=2``, ``Conv2d``) with bias on
     channels-last features: weight (out, in, 1) or (out, in, 1, 1), bias
-    (out,)."""
+    (out,). The product runs in x's dtype (``dense``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_dims: int = 1):
         super().__init__(in_channels, out_channels, kernel_dims)
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return dense(x, self.weight.flatten(1), self.bias)
 
 
 def _stack(widths):
@@ -88,34 +102,42 @@ def _stack(widths):
 
 
 class PointNetEncoder(nn.Module):
-    """(B, N, 3) -> (B, dim_k): ``h1`` (3-64-64) and ``h2`` (64-64-128-dim_k)
-    as the reference's Sequentials, then the max over the points."""
+    """(B, N, 3) -> (B, dim_k), fp32 at most: ``h1`` (3-64-64) and ``h2``
+    (64-64-128-dim_k) as the reference's Sequentials, then the max over the
+    points. ``dtype`` overrides the compute dtype for one call (the solver
+    pins its passes to fp32)."""
 
-    def __init__(self, dim_k: int = 1024):
+    def __init__(self, dim_k: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.h1 = _stack([3, 64, 64])
         self.h2 = _stack([64, 64, 128, dim_k])
 
-    def forward(self, points):
-        return self.h2(self.h1(points)).amax(dim=1)
+    def forward(self, points, dtype: torch.dtype | None = None):
+        x = lower(points, self.dtype if dtype is None else dtype)
+        return upcast(self.h2(self.h1(x)).amax(dim=1))
 
 
 class Decoder(nn.Module):
-    """(B, bottleneck) -> (B, num_points, 3)."""
+    """(B, bottleneck) -> (B, num_points, 3), fp32 at most, computing in ``dtype``
+    up to the last layer's output."""
 
-    def __init__(self, num_points: int = 2048, bottleneck: int = 1024):
+    def __init__(self, num_points: int = 2048, bottleneck: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_points = num_points
+        self.dtype = dtype
         widths = [bottleneck, bottleneck, bottleneck // 2, bottleneck // 4]
         for i in range(3):
-            setattr(self, f"fc{i + 1}", nn.Linear(widths[i], widths[i + 1]))
+            setattr(self, f"fc{i + 1}", Linear(widths[i], widths[i + 1]))
             setattr(self, f"bn{i + 1}", TorchGroupNorm(8, widths[i + 1]))
-        self.fc4 = nn.Linear(widths[3], num_points * 3)
+        self.fc4 = Linear(widths[3], num_points * 3)
 
     def forward(self, x):
+        x = lower(x, self.dtype)
         for i in range(1, 4):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x)))
-        x = torch.tanh(self.fc4(x)) * 10.0
+        x = torch.tanh(upcast(self.fc4(x))) * 10.0  # the points back in fp32
         # the reference reshapes to (B, 3, N), then transposes
         return x.reshape(-1, 3, self.num_points).transpose(1, 2)
 
@@ -137,8 +159,9 @@ class SolveRegistration(nn.Module):
     def __init__(self, cfg: FMRConfig = FMRConfig()):
         super().__init__()
         self.cfg = cfg
-        self.encoder = PointNetEncoder(cfg.dim_k)
-        self.decoder = Decoder(cfg.num_points, cfg.dim_k) if cfg.use_decoder else None
+        dtype = compute_dtype(cfg.dtype)
+        self.encoder = PointNetEncoder(cfg.dim_k, dtype)
+        self.decoder = Decoder(cfg.num_points, cfg.dim_k, dtype) if cfg.use_decoder else None
         self.dt = nn.Parameter(torch.full((1, 6), 1.0e-2))
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
@@ -149,12 +172,13 @@ class SolveRegistration(nn.Module):
 
     def _approx_jac(self, p0, f0, dt):
         """J[b, :, k] = (f0 - enc(exp(-e_k dt_k) p0)) / dt_k, one encoder
-        pass over the B * 6 perturbed clouds."""
+        pass over the B * 6 perturbed clouds, in fp32."""
         B, N, _ = p0.shape
         twists = -torch.eye(6, dtype=p0.dtype, device=p0.device)[None] * dt[:, None, :]
         D = se3.exp(twists)  # (B, 6, 4, 4)
         p = se3.transform(D[:, :, None], p0[:, None])  # (B, 6, N, 3)
-        f = self.encoder(p.reshape(B * 6, N, 3)).reshape(B, 6, -1).transpose(1, 2)
+        f = self.encoder(p.reshape(B * 6, N, 3), torch.float32)
+        f = f.reshape(B, 6, -1).transpose(1, 2)
         return (f0[..., None] - f) / dt[:, None, :]
 
     def forward(self, p0, p1, maxiter: int | None = None):
@@ -173,10 +197,10 @@ class SolveRegistration(nn.Module):
         a1 = eye4.clone()
         a1[:, :3, 3] = -p1_m
 
-        f0 = self.encoder(q0)
+        f0 = self.encoder(q0, torch.float32)  # feeds the solver: fp32
         loss_ende = torch.zeros((), dtype=dtype, device=dev)
         if self.decoder is not None:
-            f1_full = self.encoder(q1)
+            f1_full = self.encoder(q1)  # the autoencoder branch: the config's dtype
             loss_ende = (ae_chamfer(q0, self.decoder(f0))
                          + ae_chamfer(q1, self.decoder(f1_full)))
 
@@ -199,7 +223,7 @@ class SolveRegistration(nn.Module):
         stopped = torch.zeros((), dtype=torch.bool, device=dev)
         r = None
         for _ in range(maxiter):
-            f1 = self.encoder(se3.transform(g[:, None], q1))
+            f1 = self.encoder(se3.transform(g[:, None], q1), torch.float32)
             r_new = f1 - f0
             r = r_new if r is None else torch.where(stopped, r, r_new)
             dx = -(pinv @ r[..., None])[..., 0]  # (B, 6)

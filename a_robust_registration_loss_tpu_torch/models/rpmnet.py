@@ -43,7 +43,14 @@ matrix and a k-selection; the feature net runs on (B, N, k, C) activations
 (at the defaults (4, 1,024, 64, 96 to 192), 100 to 200 MB each). The grouped
 table is data, never a parameter's function: the points, their normals and
 the source moved by a detached transform. So no gradient reaches the
-gather, and its backward kernels never run on this path. fp32 only.
+gather, and its backward kernels never run on this path.
+
+Mixed precision (``RPMNetConfig.dtype="bfloat16"``), as the JAX package
+places it: the feature nets and the annealing PointNet compute in bf16;
+the annealing net's beta / alpha layer runs in fp32, and the features go
+back to fp32 before their L2 normalisation and the matching. The ball
+query, the PPF geometry (the gather keeps taking the fp32 xyz and
+normals), Sinkhorn and Kabsch stay fp32, as do the parameters.
 """
 
 from __future__ import annotations
@@ -55,7 +62,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from a_robust_registration_loss_tpu_torch.models.common import TorchGroupNorm
+from a_robust_registration_loss_tpu_torch.models.common import (
+    Linear,
+    TorchGroupNorm,
+    compute_dtype,
+    lower,
+    upcast,
+)
 from a_robust_registration_loss_tpu_torch.models.fmr import PointwiseBias
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
@@ -69,7 +82,8 @@ _RAW_ORDER = {"xyz": 0, "dxyz": 1, "ppf": 2}
 
 @dataclasses.dataclass(frozen=True)
 class RPMNetConfig:
-    """The reference CLI's defaults. fp32 only."""
+    """The reference CLI's defaults; ``dtype`` the feature nets' and the
+    annealing net's compute dtype (module docstring)."""
 
     features: Sequence[str] = ("ppf", "dxyz", "xyz")
     feat_dim: int = 96
@@ -81,9 +95,7 @@ class RPMNetConfig:
     dtype: str = "float32"
 
     def __post_init__(self):
-        if self.dtype != "float32":
-            raise ValueError(f"RPMNetConfig: dtype {self.dtype!r} is not ported; only "
-                             "float32 (mixed precision is ROADMAP.md Queue 1 item 6)")
+        compute_dtype(self.dtype)
         if self.anneal not in ("net", "constant"):
             raise ValueError(f"RPMNetConfig: anneal {self.anneal!r} is neither 'net' nor "
                              "'constant'")
@@ -157,20 +169,23 @@ def _stack(layers, kernel_dims: int, last_plain: bool = False):
 
 class ParameterPredictionNet(nn.Module):
     """Annealing parameters from a PointNet over both clouds: (B, J, 3),
-    (B, K, 3) -> (beta (B,), alpha (B,))."""
+    (B, K, 3) -> (beta (B,), alpha (B,)), computing in ``dtype`` up to the
+    last layer, which runs in fp32."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.prepool = _stack([(4, 64, 8), (64, 64, 8), (64, 64, 8), (64, 128, 8),
                                (128, 1024, 16)], kernel_dims=1)
         self.postpool = nn.Sequential(
-            nn.Linear(1024, 512), TorchGroupNorm(16, 512), nn.ReLU(),
-            nn.Linear(512, 256), TorchGroupNorm(16, 256), nn.ReLU(),
+            Linear(1024, 512), TorchGroupNorm(16, 512), nn.ReLU(),
+            Linear(512, 256), TorchGroupNorm(16, 256), nn.ReLU(),
             nn.Linear(256, 2))
 
     def forward(self, src, ref):
         x = torch.cat([F.pad(src, (0, 1), value=0.0), F.pad(ref, (0, 1), value=1.0)], dim=1)
-        raw = self.postpool(self.prepool(x).amax(dim=1))
+        y = self.postpool[:-1](self.prepool(lower(x, self.dtype)).amax(dim=1))
+        raw = self.postpool[-1](upcast(y))  # the beta / alpha layer in fp32
         return F.softplus(raw[:, 0]), F.softplus(raw[:, 1])
 
 
@@ -190,11 +205,13 @@ class ParameterPredictionNetConstant(nn.Module):
 
 class FeatExtractionEarlyFusion(nn.Module):
     """Hybrid per-point features, L2-normalised: (B, N, 3) points and
-    normals -> (B, N, feat_dim)."""
+    normals -> (B, N, feat_dim) fp32; the nets compute in the config's
+    dtype, the raw features and the normalisation are fp32."""
 
     def __init__(self, cfg: RPMNetConfig):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.dtype)
         raw = sum(_RAW_SIZES[f] for f in cfg.features)
         out = cfg.feat_dim * 2
         self.prepool = _stack([(raw, out // 2, 8), (out // 2, out // 2, 8), (out // 2, out, 8)],
@@ -210,7 +227,7 @@ class FeatExtractionEarlyFusion(nn.Module):
         B, N, ns = xyz.shape[0], xyz.shape[1], cfg.num_neighbors
         x = torch.cat([feats[f].expand(B, N, ns, feats[f].shape[-1])
                        for f in sorted(cfg.features, key=_RAW_ORDER.get)], dim=-1)
-        x = self.postpool(self.prepool(x).amax(dim=2))
+        x = upcast(self.postpool(self.prepool(lower(x, self.dtype)).amax(dim=2)))
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
@@ -275,7 +292,7 @@ class RPMNetEarlyFusion(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.weights_net = (ParameterPredictionNetConstant() if cfg.anneal == "constant"
-                            else ParameterPredictionNet())
+                            else ParameterPredictionNet(compute_dtype(cfg.dtype)))
         self.feat_extractor = FeatExtractionEarlyFusion(cfg)
 
     def forward(self, xyz_src, norm_src, xyz_ref, norm_ref, num_iter: int = 2):

@@ -158,6 +158,8 @@ def sample_and_hit(u4, r, center, fv_prep):
     if u4.dim() not in (2, 3) or u4.shape[-2] != 4:
         raise ValueError(f"sample_and_hit: u4 must be (4, C) or (B, 4, C), got {tuple(u4.shape)}")
     lead = tuple(u4.shape[:-2])  # () or (B,)
+    if isinstance(r, torch.Tensor) and r.dtype != torch.float32:
+        raise ValueError(f"sample_and_hit: r must be float32, got {r.dtype}")
     r = torch.as_tensor(r, dtype=torch.float32, device=dev)
     for name, x, shape in (("r", r, lead), ("center", center, lead + (3,)),
                            ("fv_prep", fv_prep, lead + (2 * NF, 16))):

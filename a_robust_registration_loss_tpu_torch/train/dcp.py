@@ -38,6 +38,7 @@ from a_robust_registration_loss_tpu_torch.eval import metrics as EM
 from a_robust_registration_loss_tpu_torch.models.dcp import DCP, DCPConfig, reset_parameters
 from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
+from a_robust_registration_loss_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +69,7 @@ def train_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainCon
     params = list(model.parameters())
     R_ab, t_ab, R_ba, t_ba = forward(model, batch)
     loss, monitors = L.dcp_train_loss(batch, R_ab, t_ab, R_ba, t_ba, cfg.loss, u4, generator)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss)
     return opt_state, dict(monitors, loss=loss, nonfinite_steps=nonfinite)
@@ -82,7 +83,7 @@ def pretrain_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrain
     params = list(model.parameters())
     R_ab, t_ab, _, _ = forward(model, batch)
     loss = EM.gt_consistency_loss(R_ab, t_ab, batch["R"], batch["T"])
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.guarded_update(cfg.pretrain_lr, grads, opt_state, params,
                                                   loss)
@@ -312,8 +313,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card; fails without one) or cpu (the plain path)")
     harness.add_unported_flags(ap)
+    harness.add_precision_and_debug_flags(ap)
     args = ap.parse_args(argv)
     harness.reject_unported(args, ap)
+    with harness.debug_scope(args):
+        return _run(args, ap)
+
+
+def _run(args, ap):
+    """``main`` after its flags are parsed."""
     if args.init_from_ckpt and args.init_from_torch:
         ap.error("--init_from_ckpt and --init_from_torch are exclusive")
     dev = _device.resolve(args.device)
@@ -327,7 +335,8 @@ def main(argv=None):
         loss=L.LossConfig(n_lines=args.n_lines, cycle=args.cycle),
         model=DCPConfig(emb_nn=args.emb_nn, pointer=args.pointer, head=args.head,
                         emb_dims=args.emb_dims, n_blocks=args.n_blocks,
-                        n_heads=args.n_heads, ff_dims=args.ff_dims, cycle=args.cycle),
+                        n_heads=args.n_heads, ff_dims=args.ff_dims, cycle=args.cycle,
+                        dtype=args.dtype),
         fit=harness.FitConfig(epochs=args.epochs, exp_dir=args.exp_dir,
                               seed=args.seed, artifacts_every=10),
     )

@@ -39,6 +39,7 @@ from a_robust_registration_loss_tpu_torch.models.fmr import FMRConfig, SolveRegi
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
+from a_robust_registration_loss_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +76,7 @@ def train_step(model: SolveRegistration, opt_state: harness.AdamState, batch,
     out = forward(model, batch, cfg.train_maxiter)
     total, parts = L.fmr_train_loss(out["g_series"], out["loss_ende"], batch, cfg.loss,
                                     cfg.train_maxiter, u4, generator)
-    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = debug.grad(total, params, allow_unused=True)
     loss = total.detach()
     opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss)
     with torch.no_grad():
@@ -273,8 +274,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card; fails without one) or cpu (the plain path)")
     harness.add_unported_flags(ap)
+    harness.add_precision_and_debug_flags(ap)
     args = ap.parse_args(argv)
     harness.reject_unported(args, ap)
+    with harness.debug_scope(args):
+        return _run(args, ap)
+
+
+def _run(args, ap):
+    """``main`` after its flags are parsed."""
     if args.init_from_ckpt and args.init_from_torch:
         ap.error("--init_from_ckpt and --init_from_torch are exclusive")
     dev = _device.resolve(args.device)
@@ -290,7 +298,8 @@ def main(argv=None):
     cfg = FMRTrainConfig(
         lr=args.lr, train_maxiter=args.train_maxiter, eval_maxiter=args.eval_maxiter,
         loss=L.LossConfig(n_lines=args.n_lines),
-        model=FMRConfig(dim_k=args.dim_k, num_points=batch0["points_src_sample"].shape[1]),
+        model=FMRConfig(dim_k=args.dim_k, num_points=batch0["points_src_sample"].shape[1],
+                        dtype=args.dtype),
         fit=harness.FitConfig(epochs=args.epochs, exp_dir=args.exp_dir,
                               seed=args.seed, artifacts_every=10),
     )

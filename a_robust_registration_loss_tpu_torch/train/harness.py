@@ -32,6 +32,7 @@ from a_robust_registration_loss_tpu_torch.data import objio
 from a_robust_registration_loss_tpu_torch.ops import adam
 from a_robust_registration_loss_tpu_torch.ops.adam import AdamState, ScheduledAdamState
 from a_robust_registration_loss_tpu_torch.utils import CheckPointManager, MetricsWriter
+from a_robust_registration_loss_tpu_torch.utils import debug
 from a_robust_registration_loss_tpu_torch.utils.checkpoint import to_host
 
 # metrics keys aggregated by SUM over an epoch instead of the mean (event
@@ -63,7 +64,9 @@ def guarded_update(lr: float, grads, opt_state: AdamState, params, loss):
     ``ops/adam.py:step``. The arithmetic runs on the flat concatenation of
     all parameters, so the step costs a few tens of launches whatever their
     number. ``grads`` may hold None for an unused parameter (a zero
-    gradient)."""
+    gradient). With ``--debug_nans`` (``utils/debug.py``) a NaN loss raises
+    ``FloatingPointError`` instead of being skipped."""
+    debug.check_nans("the loss", loss)
     params = list(params)
     with torch.no_grad():
         g = torch.cat([(torch.zeros_like(p) if x is None else x).reshape(-1)
@@ -220,6 +223,8 @@ class Trainer:
         ``test_{key}``."""
         cfg = self.cfg
         epochs = cfg.epochs if epochs is None else epochs
+        if debug.nan_checks_on():
+            debug.name_modules(model)
         opt_state, start = self.restore(model, opt_state)
         history = []
         for epoch in range(start, epochs):
@@ -277,22 +282,38 @@ def reject_unported(args, ap):
     """The JAX CLI's flags whose paths are not ported: accepted at their
     defaults only; any other value exits naming its ROADMAP.md Queue 1
     item."""
-    for flag, default, item in (("dtype", "float32", "item 6 (mixed precision)"),
-                                ("dp", 0, "item 7 (data and line parallelism)"),
-                                ("sp", 1, "item 7 (data and line parallelism)"),
-                                ("debug", False, "item 8 (debugging aids)"),
-                                ("debug_nans", False, "item 8 (debugging aids)")):
+    for flag, default, item in (("dp", 0, "item 7 (data and line parallelism)"),
+                                ("sp", 1, "item 7 (data and line parallelism)")):
         if getattr(args, flag) != default:
             ap.exit(2, f"{ap.prog}: --{flag} {getattr(args, flag)} is not ported: "
                        f"ROADMAP.md Queue 1 {item}\n")
 
 
 def add_unported_flags(ap):
-    """The JAX CLI's ``--dtype``, ``--dp``, ``--sp``, ``--debug_nans`` and
-    ``--debug``, accepted only at their defaults (``reject_unported``)."""
-    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="only float32 is ported")
+    """The JAX CLI's ``--dp`` and ``--sp``, accepted only at their defaults
+    (``reject_unported``)."""
     ap.add_argument("--dp", type=int, default=0, help="not ported: only 0")
     ap.add_argument("--sp", type=int, default=1, help="not ported: only 1")
-    ap.add_argument("--debug_nans", action="store_true", help="not ported")
-    ap.add_argument("--debug", action="store_true", help="not ported")
+
+
+def add_precision_and_debug_flags(ap):
+    """The JAX CLI's ``--dtype``, ``--debug_nans`` and ``--debug``."""
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="the model's compute dtype (bfloat16: mixed precision; the "
+                         "parameters, the norms' statistics, the SVD and the metric stay "
+                         "fp32)")
+    ap.add_argument("--debug_nans", action="store_true",
+                    help="raise FloatingPointError at a NaN in a module's output, the "
+                         "loss or a backward node (autograd anomaly mode)")
+    ap.add_argument("--debug", action="store_true",
+                    help="--debug_nans and a pdb post-mortem on FloatingPointError or "
+                         "RuntimeError")
+
+
+def debug_scope(args):
+    """The NaN checks of ``--debug_nans`` / ``--debug`` on inside the
+    returned context (``utils/debug.py``), and with ``--debug`` the pdb
+    excepthook installed, as the JAX CLIs do."""
+    if args.debug:
+        debug.install_pdb_excepthook()
+    return debug.anomaly_detection(args.debug_nans or args.debug)

@@ -56,6 +56,7 @@ from a_robust_registration_loss_tpu_torch.ops.adam import ScheduledAdamState
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
+from a_robust_registration_loss_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,7 +139,7 @@ def train_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch,
     losses, _ = L.rpm_cal_loss(transforms, endpoints["perm_matrices"], batch, cfg.loss, u4,
                                generator)
     loss = L.rpm_total_loss(losses)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.scheduled_update(lr_schedule(cfg), grads, opt_state, params,
                                                     loss)
@@ -172,7 +173,7 @@ def pretrain_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch
     t = transforms[0][..., :3, 3]
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     loss = ((R - eye) ** 2).mean() + (t**2).mean()
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.scheduled_update(lambda _: cfg.pretrain_lr, grads, opt_state,
                                                     params, loss)
@@ -352,8 +353,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card; fails without one) or cpu (the plain path)")
     harness.add_unported_flags(ap)
+    harness.add_precision_and_debug_flags(ap)
     args = ap.parse_args(argv)
     harness.reject_unported(args, ap)
+    with harness.debug_scope(args):
+        return _run(args, ap)
+
+
+def _run(args, ap):
+    """``main`` after its flags are parsed."""
     if args.partial is not None and args.noise_type != "crop":
         ap.error("--partial only applies with --noise_type crop")
     if args.init_from_ckpt and args.init_from_torch:
@@ -378,7 +386,7 @@ def main(argv=None):
         model=RPMNetConfig(features=tuple(args.features.split(",")), feat_dim=args.feat_dim,
                            radius=args.radius, num_neighbors=args.num_neighbors,
                            num_sk_iter=args.num_sk_iter, add_slack=not args.no_slack,
-                           anneal=args.anneal),
+                           anneal=args.anneal, dtype=args.dtype),
         fit=harness.FitConfig(epochs=args.epochs, exp_dir=args.exp_dir, seed=args.seed,
                               artifacts_every=10),
     )

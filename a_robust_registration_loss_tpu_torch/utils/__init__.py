@@ -1,4 +1,4 @@
-"""Framework utilities: checkpoint management and observability."""
+"""Framework utilities: checkpoint management, observability, timing."""
 
 from a_robust_registration_loss_tpu_torch.utils.checkpoint import (  # noqa: F401
     CheckPointManager, load_params_from)
@@ -7,3 +7,4 @@ from a_robust_registration_loss_tpu_torch.utils.logging import (  # noqa: F401
     MetricsWriter,
     prepare_logger,
 )
+from a_robust_registration_loss_tpu_torch.utils.timing import StepTimer, trace  # noqa: F401

@@ -147,9 +147,8 @@ Phases:
    ``train_step``'s ms/iteration and a 5-iteration profile that counts host
    copies and waits (the SVD head waits), and ``guarded_update``'s kernels,
    in a profile that fails on a host copy or wait;
-14. (run first, after the build, with the first part of phase 17: once
-   other phases have traced, the tracer may lose a short kernel's records
-   in every window) the data layer: ``estimate_normals`` of 4,096 points
+14. (run first, after the build, with the first part of phase 17) the
+   data layer: ``estimate_normals`` of 4,096 points
    timed on the card,
    ``make_dataset.main`` writing the 60 pairs (views layout) with its wall
    time and no kernel launched, the objio backend (``native``);
@@ -204,7 +203,31 @@ Phases:
    memory and a 5-step profile that fails on a host-to-device copy (waits
    counted, Kabsch's ``svd`` and ``det`` profiled alone) and its
    GroupNorm passes timed alone at their shapes; a NaN batch skipped with
-   the state unchanged.
+   the state unchanged;
+18. each trainer in bf16 (``--dtype bfloat16``) at the width of its fp32
+   phase (DCP at its CLI defaults, FMR as in phase 15, RPM-Net as in phase
+   17): its CLI run with the fp32 run's flags, launches exact by kind of
+   step as there, each epoch's train loss within 10% of the fp32 run's
+   (DCP, RPM-Net; FMR's printed), the parameters fp32; the card's bf16
+   forward against its fp32 forward on the same weights (the JAX package's
+   ``TestMixedPrecision`` bars: DCP R and t within 0.05, RPM-Net's
+   transforms 0.12, FMR's g 0.25 and ``loss_ende`` 10%, det R within
+   1e-3 of 1, fp32 outputs); RPM-Net's resampler, stage 1 and gather on
+   the bf16 step's own inputs against their plain versions bit for bit;
+   the card's bf16 step against the CPU's bf16 step on the same weights,
+   batch, lines and ball indices (``BF16_CPU``); ``train_step`` in each
+   dtype from the same weights, side by side: ms/step, peak memory, a
+   5-step profile (kernels, device time and share, host-to-device copies
+   (must be 0), waits, the top kernels; RPM-Net's GroupNorm share from the
+   trace); a NaN batch skipped with the state unchanged, and raising
+   ``FloatingPointError`` under ``--debug_nans``;
+19. RPM-Net's gather on its ball query timed again after every other
+   phase (``late_gather_phase``): every launch seen in a window.
+
+Every traced window opens with ``PRIME`` spin kernels: once the card has
+idled, the tracer drops the first device records of each window, whatever
+kernel they belong to (``tools/tracer_records.py``), and the spin kernels
+take that loss.
 
 Each phase's wall time is printed as it ends and all of them together
 before the kernels line. Every phase that drives a path sets the launch
@@ -234,6 +257,11 @@ N_LINES = 20000
 WARMUP, TIMED = 50, 200
 PROFILED = 20  # steps traced after the timed ones
 TRACE_TRIES = 5  # windows kernel_ms traces before it fails on missing records
+# spin kernels that open every traced window: once the card has idled, the
+# tracer drops the first device records of each window, whatever kernel they
+# belong to (tools/tracer_records.py); these absorb the loss
+PRIME, PRIME_CYCLES = 64, 100_000
+PRIME_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel, left out of every count
 B2, N2, F2, L2 = 32, 1024, 1024, 5000  # BASELINE config 2
 WARMUP2, TIMED2, PROFILED2 = 2, 20, 5
 B3, N3, F3, L3, BATCHES3 = 4, 1024, 1024, 15000, 8  # the DCP path
@@ -329,6 +357,13 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def prime(torch):
+    """Open a traced window with ``PRIME`` spin kernels (``PRIME_KERNEL``)
+    before the work it measures."""
+    for _ in range(PRIME):
+        torch.cuda._sleep(PRIME_CYCLES)
+
+
 def kernel_ms(torch, fn, reps, kernel=None, per_call=1, split=None):
     """Mean device time per call of fn over reps calls, read from
     torch.profiler: of the ``per_call`` kernels a call launches once each
@@ -337,9 +372,11 @@ def kernel_ms(torch, fn, reps, kernel=None, per_call=1, split=None):
     are not ours to know). Back to back, a wrapper's host work can outlast
     its kernel, and CUDA events around the calls would then time the host.
     Each named kernel must show all of its reps launches, and a library call
-    some device activity: the tracer now and then loses the records of a
-    window's tail, so a window that shows fewer is traced again, and after
-    ``TRACE_TRIES`` windows the check fails.
+    some device activity. Once the card has idled, the tracer drops the
+    first device records of every window, so each window opens with
+    ``prime``'s spin kernels, which take that loss; it also loses a whole
+    window now and then, so a window that shows fewer is traced again, and
+    after ``TRACE_TRIES`` windows the check fails.
     ``split``, a dict of {key: part of a kernel's name}, is filled with each
     part's mean ms per call."""
     from torch.autograd import DeviceType
@@ -349,12 +386,14 @@ def kernel_ms(torch, fn, reps, kernel=None, per_call=1, split=None):
     for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime(torch)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         by_name = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name):
+            if (e.device_type == DeviceType.CUDA and PRIME_KERNEL not in e.name
+                    and (kernel is None or kernel in e.name)):
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         seen = sum(map(len, by_name.values()))
         whole = len(by_name) == per_call and all(len(us) == reps for us in by_name.values())
@@ -707,6 +746,7 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True, label=None)
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime(torch)
         for _ in range(n):
             with record_function("chip_smoke.call"):
                 one()
@@ -721,7 +761,8 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True, label=None)
     by_name = {}
     for e in events:
         # the annotation also shows on the device, spanning its kernels
-        if e.device_type == DeviceType.CUDA and e.name not in ("chip_smoke.call", label):
+        if (e.device_type == DeviceType.CUDA and e.name not in ("chip_smoke.call", label)
+                and PRIME_KERNEL not in e.name):
             tot, calls = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.time_range.elapsed_us(), calls + 1)
     copies = sum(c for k, (_, c) in by_name.items()
@@ -750,7 +791,8 @@ def profile_phase(torch, one, n, what, ms_per, units=1, strict=True, label=None)
     if not by_name:
         return None
     out = dict(kernels=kernels / n, busy_ms=busy, busy_share=busy / ms_per, copies=copies,
-               htod=htod, syncs=sum(syncs.values()))
+               htod=htod, syncs=sum(syncs.values()),
+               ms_by_kernel={k: t / 1e3 / n for k, (t, _) in by_name.items()})
     if label is not None:
         out["labelled_ms"] = labelled_ms(events, label) / n
     return out
@@ -1999,6 +2041,9 @@ def fmr_phase(torch, mods, data, tmp):
     check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 3}, 2 * steps,
                  "FMR train (2 epochs of 12 steps, 12 eval batches each)")
     secs = _epoch_seconds(run)
+    FP32_RUNS["fmr"] = dict(args=args + ["--epochs", "2"], hist=hist, secs=secs,
+                            per_step={"resample_batched": 1, "stage1_pair_pts": 3},
+                            steps=2 * steps)
     print(f"FMR train through train.fmr.main: 2 epochs of {steps} steps of B={B5} N={NP5} "
           f"L={L5} and {len(hist) and 6 * VIEWS5 - TRAIN5} eval pairs at maxiter 10: {dt:.2f} s "
           f"(CLI, data and set-up included); time/epoch_seconds {secs}; train loss "
@@ -2161,6 +2206,9 @@ def dcp_cli_phase(torch, mods, data, tmp):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = counts(IK, RS, PB)
+    FP32_RUNS["dcp"] = dict(args=args + ["--epochs", "1"], hist=hist, secs=_epoch_seconds(run),
+                            per_step={"resample_batched": 1, "stage1_pair_pts": 1},
+                            steps=TRAIN5 // B5 + n_test)
     check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1},
                  TRAIN5 // B5 + n_test, "DCP CLI train (12 steps, 12 eval batches)")
     check(all(np.isfinite(v) for v in hist[0].values()), f"a DCP CLI metric: {hist}")
@@ -2497,7 +2545,19 @@ def rpm_grouping_phase(torch, mods, data):
           f"call {fwd['call_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, take_along_dim "
           f"{fwd['library_ms']:.4f} ms, bound {db:.5f} ms by bytes ({db / fwd['ms']:.1%} of it "
           f"reached)", flush=True)
-    return gtimes
+    return gtimes, (table, flat, g)
+
+
+def late_gather_phase(torch, GK, early, inputs):
+    """RPM-Net's gather on its ball query timed again after every other
+    phase, as ``rpm_grouping_phase`` timed it first: ``kernel_ms`` must see
+    every launch in a window here too (``prime``)."""
+    late = gather_times(torch, GK, *inputs)
+    print(f"RPM-Net's gather on its ball query, timed again after the last phase: forward "
+          f"{late['fwd']['ms']:.4f} ms (first {early['fwd']['ms']:.4f}), backward "
+          f"{late['bwd']['ms']:.4f} ms{split_text(late['bwd'])} (first "
+          f"{early['bwd']['ms']:.4f}); every launch seen in a window", flush=True)
+    return late
 
 
 def rpm_phase(torch, mods, data, tmp, rate):
@@ -2533,6 +2593,8 @@ def rpm_phase(torch, mods, data, tmp, rate):
              "rpm_train": {n: launches[n] - sc.totals["pretrain"][n] for n in launches}}
     cfg = TR.RPMTrainConfig(loss=LS.LossConfig(n_lines=L_RPM), model=model.cfg)
     secs = _epoch_seconds(run)
+    FP32_RUNS["rpm"] = dict(args=args + ["--epochs", "2"], hist=hist, secs=secs,
+                            calls=dict(sc.calls))
     print(f"RPM-Net train through train.rpmnet.main: 1 pretrain epoch and 2 epochs of {steps} "
           f"steps of B={B5} N={NP5} L={L_RPM} (feat_dim {cfg.model.feat_dim}, k="
           f"{cfg.model.num_neighbors}, radius {cfg.model.radius}, {cfg.model.num_sk_iter} "
@@ -2704,6 +2766,331 @@ def rpm_phase(torch, mods, data, tmp, rate):
     return paths, dict(parity, ms_step=ms, peak_mib=peak / 2**20, profile=prof,
                        epoch_seconds=secs, groupnorm_ms=gn_ms, groupnorm_traced_ms=gn_traced)
 
+# the bf16 phases (module docstring, phase 18). The card's bf16 step
+# against the CPU's bf16 step on the
+# same weights, batch, lines (and RPM-Net's ball indices), each side its own
+# forward: bf16 keeps 8 bits of mantissa and the two sides' products sum in
+# other orders, so a rounding falls the other way now and then and the
+# difference grows with depth, as the port against the JAX package on the
+# CPU shows (tests/test_torch_mixed_precision.py: transforms 0.002 to 0.02
+# apart): transforms within 0.05 (the JAX package's own bf16-to-fp32 bar for
+# DCP), the loss within 5% relative, at most 2% of the stage-1 counts moved;
+# on the card's outputs the fp32 metric on both sides: within 1e-4
+# relative, at most 1e-4 of the counts moved, not none: on FMR's
+# bf16-trained iterates a hit can lie a knife edge apart, where the glue's
+# fp32 transform of the neighbourhoods rounds differently on the two devices
+# (PERF.md section 6)
+BF16_CPU = dict(transforms=0.05, loss=0.05, counts=0.02, same_loss=1e-4, same_counts=1e-4)
+# the card's bf16 forward against its fp32 forward on the same weights: the
+# JAX package's TestMixedPrecision bars (transforms atol, loss_ende rtol)
+BF16_FP32 = {"dcp": (0.05, None), "fmr": (0.25, 0.1), "rpm": (0.12, None)}
+BF16_TRAIN_REL = 0.10  # each epoch's train loss, bf16 against fp32 (DCP, RPM-Net)
+FP32_RUNS = {}  # the fp32 phases' first training runs, by trainer: args, hist, secs
+
+
+class _Adapter:
+    """What the bf16 phase needs of one trainer: its step module, config,
+    data, optimiser state, forward and loss."""
+
+    def __init__(self, torch, mods, name, model, data):
+        from a_robust_registration_loss_tpu_torch.data import dataset as DS
+        from a_robust_registration_loss_tpu_torch.models import rpmnet as RM
+        from a_robust_registration_loss_tpu_torch.train import dcp as TD
+        from a_robust_registration_loss_tpu_torch.train import fmr as TF
+        from a_robust_registration_loss_tpu_torch.train import harness as H
+        from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
+
+        self.torch, self.mods, self.name, self.RM, self.H = torch, mods, name, RM, H
+        LS = mods[5]
+        self.T = {"dcp": TD, "fmr": TF, "rpm": TR}[name]
+        n_lines = L_RPM if name == "rpm" else L5
+        cfg_cls = {"dcp": TD.DCPTrainConfig, "fmr": TF.FMRTrainConfig,
+                   "rpm": TR.RPMTrainConfig}[name]
+        self.cfg = cfg_cls(loss=LS.LossConfig(n_lines=n_lines), model=model.cfg)
+        self.n_lines = n_lines
+        train, _ = DS.generate_datasets(DS.DatasetConfig(
+            data_path=data, layout="views", train_count=TRAIN5, train_batch=B5,
+            dcp=name == "dcp", fmr=name == "fmr"), device=DEV)
+        self.cache = DS.DeviceCache(train, DEV)
+
+    def model(self, state_dict, dtype, device=None):
+        """A model of this config in ``dtype`` holding ``state_dict``, on the
+        card unless ``device`` says otherwise."""
+        import dataclasses
+
+        device = device or DEV
+
+        cfg = dataclasses.replace(self.cfg, model=dataclasses.replace(self.cfg.model,
+                                                                      dtype=dtype))
+        m = self.T.init_model(cfg, 0, device)
+        m.load_state_dict({k: v.to(device) for k, v in state_dict.items()})
+        return m
+
+    def state(self, m):
+        init = self.H.scheduled_adam_init if self.name == "rpm" else self.H.adam_init
+        return init(m.parameters())
+
+    def forward(self, m, b, given=None):
+        """(outputs, the ball indices taken) of one forward."""
+        with self.torch.no_grad():
+            if self.name == "dcp":
+                return list(self.T.forward(m, b)), []
+            if self.name == "fmr":
+                o = self.T.forward(m, b, MAXITER5)
+                return [o["g_series"], o["loss_ende"]], []
+            with _Handed(self.RM, given) as hand:
+                tfs, ep = self.T.forward(m, b, self.cfg.num_train_reg_iter)
+            return list(tfs) + list(ep["perm_matrices"]), hand.seen
+
+    def transforms(self, outs):
+        """The outputs held to the bars: R and t, g, or the transforms."""
+        if self.name == "rpm":
+            return outs[:self.cfg.num_train_reg_iter]
+        return outs[:2] if self.name == "dcp" else outs[:1]
+
+    def loss(self, outs, b, u4, lines=None):
+        """(the training loss on ``outs``, stage-1 counts, the lines)."""
+        G, M, IK, RS, PB, LS = self.mods[:6]
+        with self.torch.no_grad(), _Recorder(LS, M, lines) as rec:
+            if self.name == "dcp":
+                total, _ = LS.dcp_train_loss(b, *outs, self.cfg.loss, u4=u4)
+            elif self.name == "fmr":
+                total, _ = LS.fmr_train_loss(outs[0], outs[1], b, self.cfg.loss, MAXITER5,
+                                             u4=u4)
+            else:
+                n = self.cfg.num_train_reg_iter
+                losses, _ = LS.rpm_cal_loss(outs[:n], outs[n:], b, self.cfg.loss, u4=u4)
+                total = LS.rpm_total_loss(losses)
+        return float(total), rec.counts, rec.lines[0]
+
+
+def _step_numbers(torch, ad, m, gen, label):
+    """``train_step`` fed from the cache: ms/step, peak memory, a 5-step
+    profile (failing on a host-to-device copy) with, for RPM-Net,
+    GroupNorm's device time in the step's own trace."""
+    import contextlib
+
+    from a_robust_registration_loss_tpu_torch.models.common import TorchGroupNorm
+
+    step_cfg = ad.cfg
+    if ad.name == "fmr":
+        import dataclasses
+
+        step_cfg = dataclasses.replace(ad.cfg, fit=ad.H.FitConfig())
+    st = {"s": ad.state(m), "it": iter(ad.cache)}
+
+    def one():
+        b = next(st["it"], None)
+        if b is None:
+            st["it"] = iter(ad.cache)
+            b = next(st["it"])
+        st["s"], st["m"] = ad.T.train_step(m, st["s"], b, step_cfg, generator=gen)
+
+    for _ in range(WARMUP2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAD_ITERS3):
+        one()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / GRAD_ITERS3
+    torch.cuda.reset_peak_memory_stats()
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"{ad.name} {label} train_step fed from the DeviceCache: {ms:.4f} ms/step over "
+          f"{GRAD_ITERS3}; peak memory {peak:.1f} MiB; its profile:", flush=True)
+    st["it"] = iter(ad.cache)
+    label_gn = "bf16.group_norm" if ad.name == "rpm" else None
+    with (_Spans(m, TorchGroupNorm, label_gn) if label_gn else contextlib.nullcontext()):
+        prof = profile_phase(torch, one, PROFILED3, "step", ms, strict=False, label=label_gn)
+    check(prof is not None and prof["htod"] == 0,
+          f"{ad.name} {label} steps fed from the cache copied to the device: {prof}")
+    check(all(p.dtype == torch.float32 for p in m.parameters()),
+          f"{ad.name} {label}: a parameter left fp32")
+    # the products: the library's matrix-multiply kernels, and of them the
+    # tensor cores' (named bf16 or tensorop, or cuBLAS's Hopper nvjet
+    # kernels, which no fp32 product takes with TF32 off); the fp32 ones are
+    # SIMT kernels (sm80_xmma_gemm_f32f32, cutlass simt sgemm)
+    gemms = {k: v for k, v in prof["ms_by_kernel"].items() if any(
+        w in k for w in ("gemm", "nvjet", "xmma", "cutlass"))}
+    tensor_core = sum(v for k, v in gemms.items()
+                      if any(w in k for w in ("bf16", "tensorop", "nvjet")))
+    print(f"{ad.name} {label}: matrix-multiply kernels {sum(gemms.values()):.4f} ms/step, "
+          f"{tensor_core:.4f} of it on the tensor cores; the costliest: "
+          + "; ".join(f"{v:.4f} ms {k[:70]}" for k, v in sorted(gemms.items(),
+                                                               key=lambda kv: -kv[1])[:4]),
+          flush=True)
+    out = dict(ms_step=ms, peak_mib=peak, kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+               busy_share=prof["busy_share"], htod=prof["htod"],
+               waits=prof["syncs"] / PROFILED3, gemm_ms=sum(gemms.values()),
+               tensor_core_gemm_ms=tensor_core)
+    if label_gn:
+        out["groupnorm_ms"] = prof["labelled_ms"]
+        out["groupnorm_share"] = prof["labelled_ms"] / prof["busy_ms"]
+    return out
+
+
+def bf16_phase(torch, mods, data, tmp, name):
+    """One trainer in bf16 at the width of its fp32 phase (module docstring,
+    phase 18). Returns ({path: launches}, the numbers of both dtypes)."""
+    from a_robust_registration_loss_tpu_torch.utils import debug
+
+    G, M, IK, RS, PB, LS, GK = mods[:7]
+    fp32 = FP32_RUNS[name]
+    T = {"dcp": "train.dcp", "fmr": "train.fmr", "rpm": "train.rpmnet"}[name]
+    run = os.path.join(tmp, f"{name}_bf16")
+    args = fp32["args"] + ["--dtype", "bfloat16", "--exp_dir", run]
+    torch.cuda.synchronize()
+    counts(IK, RS, PB, reset=True)
+    t0 = time.perf_counter()
+    if name == "rpm":
+        from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
+
+        with _StepCounts(TR, IK, RS, PB) as sc:
+            model, _, hist = TR.main(args)
+        launches = counts(IK, RS, PB)
+        check(sc.calls == fp32["calls"], f"RPM-Net bf16 steps by kind: {sc.calls}")
+        paths = {"rpm_bf16_pretrain": sc.totals["pretrain"],
+                 "rpm_bf16_train": {n: launches[n] - sc.totals["pretrain"][n]
+                                    for n in launches}}
+    else:
+        from a_robust_registration_loss_tpu_torch.train import dcp as TD
+        from a_robust_registration_loss_tpu_torch.train import fmr as TF
+
+        model, _, hist = {"dcp": TD, "fmr": TF}[name].main(args)
+        launches = counts(IK, RS, PB)
+        check_counts(launches, fp32["per_step"], fp32["steps"], f"{name} bf16 train")
+        paths = {f"{name}_bf16_train": launches}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    secs = _epoch_seconds(run)
+    rel = [abs(h["loss"] - f["loss"]) / abs(f["loss"]) for h, f in zip(hist, fp32["hist"])]
+    print(f"{name} bf16 through {T}.main --dtype bfloat16 ({dt:.2f} s, CLI included): train "
+          f"loss by epoch {[h['loss'] for h in hist]} against fp32's "
+          f"{[h['loss'] for h in fp32['hist']]}, rel {[f'{x:.3g}' for x in rel]}; "
+          f"time/epoch_seconds {secs} against fp32's {fp32['secs']}; launches {launches}",
+          flush=True)
+    check(model.cfg.dtype == "bfloat16" and len(rel) == len(fp32["hist"]) > 0,
+          f"{name} bf16: the run's config or epochs")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          f"{name} bf16: the trained parameters are not fp32")
+    for h in hist:
+        check(all(np.isfinite(v) for v in h.values()) and h["nonfinite_steps"] == 0.0,
+              f"{name} bf16: {h}")
+    if name != "fmr":
+        check(max(rel) <= BF16_TRAIN_REL, f"{name} bf16 train loss against fp32's: {rel}")
+
+    ad = _Adapter(torch, mods, name, model, data)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    mbf, m32 = ad.model(weights, "bfloat16"), ad.model(weights, "float32")
+    batch = next(iter(ad.cache))
+    gen = gen_on(torch, 9)
+    u4 = LS.draw_uniforms(B5, ad.n_lines, DEV, gen)
+
+    # the card's bf16 forward against its fp32 forward
+    outs_bf, idx = ad.forward(mbf, batch)
+    outs_32, _ = ad.forward(m32, batch, idx)
+    tf_bar, ende_bar = BF16_FP32[name]
+    tf_err = max(float((a - b).abs().max()) for a, b in zip(ad.transforms(outs_bf),
+                                                           ad.transforms(outs_32)))
+    check(all(o.dtype == torch.float32 for o in outs_bf), f"{name} bf16: an output is not fp32")
+    rots = {"dcp": outs_bf[:1], "fmr": [outs_bf[0][-1][..., :3, :3]],
+            "rpm": [x[..., :3, :3] for x in ad.transforms(outs_bf)]}[name]
+    det_err = max(float((torch.linalg.det(r) - 1).abs().max()) for r in rots)
+    line = (f"{name}: the card's bf16 forward against its fp32 forward (the same weights and "
+            f"batch): transforms within {tf_err:.4g} (bar {tf_bar}), det R within {det_err:.3g} "
+            "of 1 (bar 1e-3)")
+    check(tf_err <= tf_bar and det_err <= 1e-3, line)
+    if name == "fmr":
+        ende = abs(float(outs_bf[1]) - float(outs_32[1])) / abs(float(outs_32[1]))
+        same_g = torch.equal(outs_bf[0], outs_32[0])
+        line += (f"; loss_ende {float(outs_bf[1]):.6f} against {float(outs_32[1]):.6f} (rel "
+                 f"{ende:.3g}, bar {ende_bar}); the solver's iterates equal bit for bit: "
+                 f"{same_g}")
+        check(ende <= ende_bar and same_g, line)
+    print(line, flush=True)
+
+    # the card's bf16 step against the CPU's bf16 step: the same weights,
+    # batch, lines and ball indices
+    t1 = time.perf_counter()
+    total_k, counts_k, lines = ad.loss(outs_bf, batch, u4)
+    if name == "rpm":  # the kernels on this bf16 step's own inputs
+        rpm_kernels(torch, mods, ad.cfg, batch, [o.detach() for o in ad.transforms(outs_bf)],
+                    u4, lines, counts_k)
+        table = torch.cat([batch["points_src_sample"], batch["normals_src"]], dim=-1)
+        flat = idx[0].to(DEV).reshape(B5, -1)
+        check(torch.equal(GK.gather_rows_fwd(table, flat), GK.gather_rows_reference(table, flat)),
+              "the gather on the bf16 step's ball query differs from its plain version")
+        print(f"RPM-Net's gather on the bf16 step's ball query ({tuple(flat.shape)}) equals its "
+              "plain version bit for bit", flush=True)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_model = ad.model({k: v.cpu() for k, v in weights.items()}, "bfloat16", "cpu")
+    outs_c, _ = ad.forward(cpu_model, cpu_batch, [i.cpu() for i in idx])
+    same_c, same_counts, _ = ad.loss([o.cpu() for o in outs_bf], cpu_batch, u4.cpu(), lines.cpu())
+    own_c, own_counts, _ = ad.loss(outs_c, cpu_batch, u4.cpu(), lines.cpu())
+    same_err = abs(total_k - same_c) / abs(same_c)
+    own_err = abs(total_k - own_c) / abs(own_c)
+    cpu_tf = max(float((a.cpu() - b).abs().max()) for a, b in zip(ad.transforms(outs_bf),
+                                                                  ad.transforms(outs_c)))
+    moved = sum(int((a != b).sum()) for a, b in zip(counts_k, own_counts))
+    n_counts = sum(a.size for a in counts_k)
+    check(len(counts_k) == len(same_counts) == len(own_counts), f"{name}: metric calls")
+    same_moved = sum(int((a != b).sum()) for a, b in zip(counts_k, same_counts))
+    line = (f"{name}: the card's bf16 step against the CPU's bf16 step ({time.perf_counter() - t1:.1f}"
+            f" s): on the card's outputs loss {total_k:.7f} vs {same_c:.7f} (rel {same_err:.3g}, "
+            f"bar {BF16_CPU['same_loss']}), {same_moved} of {n_counts} stage-1 counts moved (bar "
+            f"{BF16_CPU['same_counts']:.0e}); each side's own "
+            f"forward: transforms within {cpu_tf:.4g} (bar {BF16_CPU['transforms']}), loss "
+            f"{own_c:.7f} (rel {own_err:.3g}, bar {BF16_CPU['loss']}), {moved} of {n_counts} "
+            f"stage-1 counts moved (bar {BF16_CPU['counts']:.0%})")
+    print(line, flush=True)
+    check(same_err <= BF16_CPU["same_loss"] and same_moved <= BF16_CPU["same_counts"] * n_counts
+          and cpu_tf <= BF16_CPU["transforms"]
+          and own_err <= BF16_CPU["loss"] and moved <= BF16_CPU["counts"] * n_counts, line)
+
+    # the numbers of both dtypes, side by side, from the same weights
+    numbers = {}
+    for dtype in ("float32", "bfloat16"):
+        numbers[dtype] = _step_numbers(torch, ad, ad.model(weights, dtype), gen_on(torch, 10),
+                                       dtype)
+    numbers["float32"]["s_epoch"], numbers["bfloat16"]["s_epoch"] = fp32["secs"], secs
+    print(f"{name} bf16 against fp32 on the card (NVIDIA card above): "
+          + "; ".join(f"{k} {numbers['bfloat16'][k]:.4g} vs {numbers['float32'][k]:.4g}"
+                      for k in numbers["float32"] if k != "s_epoch")
+          + f"; s/epoch {secs} vs {fp32['secs']}", flush=True)
+
+    # a poisoned batch: skipped without --debug_nans, raises with it
+    poisoned = dict(batch)
+    poisoned["points_src_sample"] = batch["points_src_sample"].clone()
+    poisoned["points_src_sample"][0, 0, 0] = float("nan")
+    mp = ad.model(weights, "bfloat16")
+    st = ad.state(mp)
+    step_cfg = ad.cfg
+    if name == "fmr":
+        import dataclasses
+
+        step_cfg = dataclasses.replace(ad.cfg, fit=ad.H.FitConfig())
+    after, m = ad.T.train_step(mp, st, poisoned, step_cfg, generator=gen)
+    flat_state = lambda s: list(s.adam) + [s.count] if name == "rpm" else list(s)  # noqa: E731
+    check(float(m["nonfinite_steps"]) == 1.0 and all(
+        torch.equal(v, weights[k]) for k, v in mp.state_dict().items()) and all(
+        torch.equal(a, b) for a, b in zip(flat_state(after), flat_state(st))),
+        f"{name} bf16: the NaN batch was not skipped with the state unchanged")
+    debug.name_modules(mp)
+    raised = None
+    with debug.anomaly_detection():
+        try:
+            ad.T.train_step(mp, st, poisoned, step_cfg, generator=gen)
+        except FloatingPointError as e:
+            raised = e
+    check(raised is not None, f"{name} bf16 --debug_nans: the NaN batch did not raise")
+    print(f"{name} bf16: the NaN batch skipped with the state unchanged; under --debug_nans "
+          f"it raises FloatingPointError: {raised}", flush=True)
+    return paths, dict(numbers, train_loss_rel=rel, transforms_vs_fp32=tf_err,
+                       transforms_vs_cpu=cpu_tf, loss_vs_cpu=own_err, counts_moved=moved)
+
+
 
 def groupnorm_ms(torch, model, step):
     """The device time a step spends in ``model``'s GroupNorm passes: the
@@ -2784,7 +3171,8 @@ def main():
     tmp_dir = tempfile.TemporaryDirectory()  # the data phase's files, for phases 14 to 17
     tmp = tmp_dir.name
     data5 = timed(seconds, "data", data_phase, torch, mods3, tmp)
-    rpm_gather = timed(seconds, "rpm_grouping", rpm_grouping_phase, torch, mods3, data5)
+    rpm_gather, rpm_gather_inputs = timed(seconds, "rpm_grouping", rpm_grouping_phase, torch,
+                                          mods3, data5)
     probe, rate, probe_launches = timed(seconds, "probe", probe_phase, torch, PB)
 
     cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES,
@@ -2886,13 +3274,20 @@ def main():
         dcp_cli, dcp_cli_eval = timed(seconds, "dcp_cli", dcp_cli_phase, torch, mods3, data5,
                                       tmp)
         rpm_paths, _ = timed(seconds, "rpm", rpm_phase, torch, mods3, data5, tmp, rate)
+        bf16 = {name: timed(seconds, f"{name}_bf16", bf16_phase, torch, mods3, data5, tmp, name)
+                for name in ("dcp", "fmr", "rpm")}
+    late_gather = timed(seconds, "late_gather", late_gather_phase, torch, GK, rpm_gather,
+                        rpm_gather_inputs)
+    bf16_paths = {p: c for paths_, _ in bf16.values() for p, c in paths_.items()}
+    print("bf16 against fp32 on the card, the same weights and batches (NVIDIA card above): "
+          + json.dumps({name: numbers for name, (_, numbers) in bf16.items()}), flush=True)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
              "dcp_graph_gather": dcp["graph_gather"], "classical_batch": classical_batch,
              "demo": demo_launches, "dcp_train": dcp_train, "fmr_train": fmr_train,
              "fmr_eval_only": fmr_eval, "dcp_cli_train": dcp_cli,
-             "dcp_cli_eval_only": dcp_cli_eval, **rpm_paths}
+             "dcp_cli_eval_only": dcp_cli_eval, **rpm_paths, **bf16_paths}
     for k in kernels:  # the gather on RPM-Net's own ball query, its first model caller
         if k["name"] in ("gather_fwd", "gather_bwd"):
             t = rpm_gather[k["name"][7:]]
@@ -2900,7 +3295,8 @@ def main():
                 shape=t["shape"], max_abs_err=t["err"], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"], library_ms=t["library_ms"],
                 bound_ms=bounds(0, t["nbytes"], rate)[1][0], bound_by="bytes",
-                **{key: t[key] for key in ("kernels_per_call", "ms_by_kernel") if key in t})
+                **{key: t[key] for key in ("kernels_per_call", "ms_by_kernel") if key in t},
+                ms_after_last_phase=late_gather[k["name"][7:]]["ms"])
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())

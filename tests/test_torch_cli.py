@@ -2,7 +2,9 @@
 builder, the neighbour precompute and the depth CLI, then DCP's, FMR's and
 RPM-Net's trainers: one epoch, the resume, ``--eval_only``,
 ``--init_from_ckpt`` and ``--init_from_torch``, writing the JAX CLIs' files
-(compare tests/test_cli.py).
+(compare tests/test_cli.py); ``--dtype bfloat16``, ``--debug_nans`` and
+``--debug`` train, ``--dp`` and ``--sp`` exit naming their ROADMAP.md
+item.
 
 The dataset is built by the port's own ``make_dataset.main``. The
 trainers' metrics go to ``metrics.jsonl`` only: importing tensorboard
@@ -11,6 +13,7 @@ takes longer than these runs, and its events are an optional extra.
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -106,7 +109,26 @@ def _same_params(a, b):
     return all(torch.equal(v, b[k]) for k, v in a.items()) and a.keys() == b.keys()
 
 
-def test_dcp_cli(data, tmp_path):
+def _trains_with_dtype_and_debug_flags(main, args, tmp_path, monkeypatch):
+    """``--dtype bfloat16``, ``--debug_nans`` and ``--debug`` train an epoch:
+    bf16 with fp32 parameters; under the NaN checks the same losses as
+    without them, the checks off again afterwards."""
+    from a_robust_registration_loss_tpu_torch.utils import debug
+
+    monkeypatch.setattr(sys, "excepthook", sys.excepthook)  # --debug installs a pdb hook
+    base = args + ["--epochs", "1"]
+    model, _, hist = main(base + ["--exp_dir", str(tmp_path / "bf16"), "--dtype", "bfloat16"])
+    assert model.cfg.dtype == "bfloat16" and np.isfinite(hist[0]["loss"])
+    assert hist[0]["nonfinite_steps"] == 0.0
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    _, _, plain = main(base + ["--exp_dir", str(tmp_path / "plain")])
+    for flag in ("--debug_nans", "--debug"):
+        _, _, hist = main(base + ["--exp_dir", str(tmp_path / flag[2:]), flag])
+        assert hist == plain and not debug.nan_checks_on()
+    assert getattr(sys.excepthook, "arrl_pdb_hook", False)
+
+
+def test_dcp_cli(data, tmp_path, monkeypatch):
     exp, exp2 = str(tmp_path / "exp"), str(tmp_path / "exp2")
     args = ["--data_path", data] + COMMON + DCP_SMALL
     model, _, hist = dcp.main(args + ["--exp_dir", exp, "--epochs", "1"])
@@ -132,15 +154,15 @@ def test_dcp_cli(data, tmp_path):
     start, _, _ = dcp.main(args + ["--exp_dir", str(tmp_path / "exp3"), "--init_from_torch",
                                    pth, "--epochs", "0"])
     assert _same_params(start.state_dict(), loaded)
-    for flag in (["--dtype", "bfloat16"], ["--dp", "2"], ["--sp", "2"], ["--debug"],
-                 ["--debug_nans"]):
+    for flag in (["--dp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit):
             dcp.main(args + ["--exp_dir", exp2] + flag)
+    _trains_with_dtype_and_debug_flags(dcp.main, args, tmp_path, monkeypatch)
     with pytest.raises(SystemExit):
         dcp.main(args + ["--init_from_ckpt", exp, "--init_from_torch", pth])
 
 
-def test_fmr_cli(data, tmp_path):
+def test_fmr_cli(data, tmp_path, monkeypatch):
     exp, exp2 = str(tmp_path / "exp"), str(tmp_path / "exp2")
     args = ["--data_path", data] + COMMON + FMR_SMALL
     model, _, hist = fmr.main(args + ["--exp_dir", exp, "--epochs", "1"])
@@ -185,11 +207,13 @@ def test_fmr_cli(data, tmp_path):
     _save_reference(start, pth)
     assert fmr.main(args + ["--exp_dir", exp4, "--eval_only", "--init_from_torch",
                             pth]) == dm and np.isfinite(dm)
-    with pytest.raises(SystemExit):
-        fmr.main(args + ["--exp_dir", exp2, "--dtype", "bfloat16"])
+    for flag in (["--dp", "2"], ["--sp", "2"]):
+        with pytest.raises(SystemExit):
+            fmr.main(args + ["--exp_dir", exp2] + flag)
+    _trains_with_dtype_and_debug_flags(fmr.main, args, tmp_path, monkeypatch)
 
 
-def test_rpmnet_cli(data, tmp_path, capsys):
+def test_rpmnet_cli(data, tmp_path, capsys, monkeypatch):
     exp, exp2 = str(tmp_path / "exp"), str(tmp_path / "exp2")
     args = ["--data_path", data] + COMMON + RPM_SMALL
     model, state, hist = rpmnet.main(args + ["--exp_dir", exp, "--epochs", "1",
@@ -237,11 +261,11 @@ def test_rpmnet_cli(data, tmp_path, capsys):
                                      "--rot_mag", "10", "--num_points", "48"])
     assert np.isfinite(hist[0]["loss"])
     capsys.readouterr()
-    for flag, item in ((["--dtype", "bfloat16"], "item 6"), (["--dp", "2"], "item 7"),
-                       (["--debug_nans"], "item 8")):
+    for flag in (["--dp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit):
             rpmnet.main(args + ["--exp_dir", exp2] + flag)
-        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+        assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err
+    _trains_with_dtype_and_debug_flags(rpmnet.main, args, tmp_path, monkeypatch)
     for bad in (["--init_from_ckpt", exp, "--init_from_torch", pth], ["--partial", "0.5"]):
         with pytest.raises(SystemExit):
             rpmnet.main(args + ["--exp_dir", exp2] + bad)

@@ -39,7 +39,13 @@ RPM-Net's ball query on the card equal to the CPU's except in rows with a
 pair whose float64 d^2 lies within 1e-6 r^2 of r^2, the gather on its
 indices equal to ``gather_rows_reference`` and ``take_along_dim`` bit for
 bit with one forward launch and no backward, and a forward of the model
-launching one gather a feature pass.
+launching one gather a feature pass; each model's bf16 forward on the card
+against the CPU's bf16 forward on the same weights (and, for RPM-Net, the
+card's ball indices): fp32 outputs, transforms within 0.05 and FMR's
+``loss_ende`` within 5% relative (bf16 rounding that falls the other way
+where the two sides sum in other orders: the bars of ``chip_smoke.py``'s
+bf16 phases); and every kernel wrapper refusing a bf16 input rather than
+casting it.
 """
 
 import numpy as np
@@ -726,3 +732,77 @@ def test_rpm_ball_query_and_gather_on_card(cuda_device):
     assert GK.launches["fwd"] - before["fwd"] == 4
     assert GK.launches["bwd_sum"] == before["bwd_sum"] and GK.launches["bwd_sort"] == before[
         "bwd_sort"]
+
+
+def _bf16_case(name, device):
+    """A bf16 model of each trainer at a small width (random weights from
+    seed 0) and its inputs, on ``device``."""
+    from a_robust_registration_loss_tpu_torch.models import fmr as F
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as R
+
+    torch.manual_seed(0)
+    xyz = torch.stack([torch.tensor(_cloud(256, s)) for s in range(2)])
+    tgt = xyz @ se3.exp(torch.tensor([0.1, -0.2, 0.15, 0.02, 0.0, -0.03]))[:3, :3].T
+    if name == "dcp":
+        m = D.DCP(D.DCPConfig(emb_nn="pointnet", emb_dims=64, ff_dims=64, dtype="bfloat16"))
+        args = (xyz, tgt)
+    elif name == "fmr":
+        m = F.SolveRegistration(F.FMRConfig(dim_k=64, num_points=256, dtype="bfloat16"))
+        args = (tgt, xyz)
+    else:
+        m = R.RPMNetEarlyFusion(R.RPMNetConfig(feat_dim=32, dtype="bfloat16"))
+        normals = torch.nn.functional.normalize(xyz, dim=-1)
+        args = (xyz, normals, tgt, torch.nn.functional.normalize(tgt, dim=-1))
+    return m.to(device), tuple(a.to(device) for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dcp", "fmr", "rpmnet"])
+def test_bf16_forward_on_card_against_cpu(cuda_device, name, monkeypatch):
+    from a_robust_registration_loss_tpu_torch.models import rpmnet as R
+
+    m, args = _bf16_case(name, cuda_device)
+    seen, real = [], R.query_ball_point_excl
+    monkeypatch.setattr(R, "query_ball_point_excl",
+                        lambda *a, **k: seen.append(real(*a, **k)) or seen[-1])
+    with torch.no_grad():
+        card = m(*args, maxiter=3) if name == "fmr" else m(*args)
+    handed = iter([i.cpu() for i in seen])
+    monkeypatch.setattr(R, "query_ball_point_excl", lambda *a, **k: next(handed))
+    m_cpu, args_cpu = m.cpu(), tuple(a.cpu() for a in args)
+    with torch.no_grad():
+        cpu = m_cpu(*args_cpu, maxiter=3) if name == "fmr" else m_cpu(*args_cpu)
+    if name == "dcp":
+        pairs = list(zip(card[:2], cpu[:2]))
+    elif name == "fmr":
+        pairs = [(card["g"], cpu["g"])]
+        loss = (float(card["loss_ende"]), float(cpu["loss_ende"]))
+        assert abs(loss[0] - loss[1]) <= 0.05 * abs(loss[1])
+    else:
+        pairs = list(zip(card[0], cpu[0]))
+    for a, b in pairs:
+        assert a.dtype == b.dtype == torch.float32
+        assert float((a.cpu() - b).abs().max()) <= 0.05
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_a_bf16_input(cuda_device):
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    f32 = dict(device=cuda_device, dtype=torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        IK.stage1((torch.zeros((4, 9), **bf),), torch.zeros((3, 6), **bf),
+                  (torch.zeros(4, **bf),), 2)
+    with pytest.raises(ValueError, match="float32"):
+        IK.stage1((torch.zeros((4, 9), **f32),), torch.zeros((3, 6), **f32),
+                  (torch.zeros(4, **bf),), 2)
+    with pytest.raises(ValueError, match="float32"):
+        RS.sample_and_hit(torch.zeros((4, 8), **bf), 1.0, torch.zeros(3, **f32),
+                          torch.zeros((24, 16), **f32))
+    with pytest.raises(ValueError, match="float32"):
+        RS.sample_and_hit(torch.zeros((4, 8), **f32), torch.tensor(1.0, **bf),
+                          torch.zeros(3, **f32), torch.zeros((24, 16), **f32))
+    with pytest.raises(ValueError, match="float32"):
+        GK.gather_rows(torch.zeros((1, 4, 6), **bf),
+                       torch.zeros((1, 3), dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError, match="float32"):
+        PB.logistic_map(torch.zeros(8, **bf), 1)

@@ -290,8 +290,9 @@ def test_rpmnet_from_flax_raises_on_stray_parameters():
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        R.RPMNetConfig(dtype="bfloat16")
+    assert R.RPMNetConfig(dtype="bfloat16").dtype == "bfloat16"  # mixed precision is ported
+    with pytest.raises(ValueError, match="dtype"):
+        R.RPMNetConfig(dtype="float16")
     with pytest.raises(ValueError, match="features"):
         R.RPMNetConfig(features=("ppf", "fpfh"))
     with pytest.raises(ValueError, match="anneal"):
@@ -318,14 +319,17 @@ def test_groupnorm_spans_find_forward_and_backward():
     found = chip_smoke.labelled_events(prof.events(), "gn")
     nodes = sorted(e.name.split(": ")[-1] for e in found if e.scope == 1)
     ops = {e.name for e in found if e.scope != 1}
+    # the views of the input, the weight, the bias and the output; the
+    # statistics; y = (x - mean) * (rsqrt(var + eps) * weight) + bias
     assert nodes == sorted(["ViewBackward0", "MeanBackward1", "SubBackward0", "PowBackward0",
                             "MeanBackward1", "AddBackward0", "SubBackward0", "RsqrtBackward0",
-                            "MulBackward0", "ViewBackward0", "MulBackward0", "AddBackward0"])
+                            "ViewBackward0", "MulBackward0", "ViewBackward0", "MulBackward0",
+                            "ViewBackward0", "AddBackward0"])
     assert {"aten::mean", "aten::rsqrt", "aten::pow"} <= ops
     # the engine's sums of broadcast gradients, outside their nodes: to the
-    # shapes of the two means, of the reciprocal deviation, of the weight
-    # and of the bias
+    # shapes of the two means (through both subtractions), of the reciprocal
+    # deviation, of the weight (two products) and of the bias
     assert sum(e.name == "aten::sum" and e.cpu_parent.name.startswith(
-        "autograd::engine::evaluate_function") for e in found) == 5
+        "autograd::engine::evaluate_function") for e in found) == 6
     assert not ops & {"aten::linear", "aten::addmm", "aten::relu"}
     assert chip_smoke.labelled_ms(prof.events(), "gn") == 0.0  # no device kernel on the CPU
