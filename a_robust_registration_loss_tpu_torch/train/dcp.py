@@ -65,13 +65,15 @@ def train_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainCon
     guarded Adam step at cfg.lr, in place on the model. Returns (opt_state,
     metrics): the loss's monitors, ``loss`` and ``nonfinite_steps`` (1.0
     where a non-finite loss or gradient left the model and the state as
-    they were)."""
+    they were). Under ``cfg.loss.mesh`` the batch is this rank's dp rows,
+    ``u4`` the global batch's, and the update averages over dp."""
     params = list(model.parameters())
     R_ab, t_ab, R_ba, t_ba = forward(model, batch)
     loss, monitors = L.dcp_train_loss(batch, R_ab, t_ab, R_ba, t_ba, cfg.loss, u4, generator)
     grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
-    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss)
+    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss,
+                                                  cfg.loss.mesh)
     return opt_state, dict(monitors, loss=loss, nonfinite_steps=nonfinite)
 
 
@@ -86,9 +88,9 @@ def pretrain_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrain
     grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.guarded_update(cfg.pretrain_lr, grads, opt_state, params,
-                                                  loss)
+                                                  loss, cfg.loss.mesh)
     with torch.no_grad():
-        mae, rmse = EM.rotation_euler_errors(R_ab, batch["R"], seq="xyz")
+        mae, rmse = L.euler_errors(R_ab, batch["R"], cfg.loss)
         return opt_state, dict(loss=loss, loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse,
                                loss_translation=EM.translation_mse(t_ab, batch["T"]),
                                nonfinite_steps=nonfinite)
@@ -104,15 +106,16 @@ def init_model(cfg: DCPTrainConfig, seed: int, device=None) -> DCP:
 
 
 def train(cfg: DCPTrainConfig, train_loader, test_loader=None, init_from=None,
-          log=print, device=None):
+          log=print, device=None, mesh=None):
     """Full training: the model from ``init_from`` (a state dict) or drawn
     from cfg.fit.seed, the pretrain phase (cfg.pretrain_epochs, its own
     Trainer under ``exp_dir/pretrain``), then the main phase with eval,
     checkpoints, metrics and artifacts under cfg.fit.exp_dir; each phase
     resumes from its latest checkpoint. Loaders are iterables of batch dicts
     (tensors or arrays); a ``Loader`` goes to the card once through
-    ``maybe_device_cache``. Returns (model, opt_state, history) of the main
-    phase."""
+    ``maybe_device_cache``. With a ``mesh`` (``parallel/mesh.py``) both
+    phases train on this rank's share of each batch. Returns (model,
+    opt_state, history) of the main phase."""
     dev = _device.resolve(device)
     train_loader = DS.maybe_device_cache(train_loader, dev)
     if test_loader is not None:
@@ -125,15 +128,16 @@ def train(cfg: DCPTrainConfig, train_loader, test_loader=None, init_from=None,
             cfg.fit, epochs=cfg.pretrain_epochs,
             exp_dir=os.path.join(cfg.fit.exp_dir, "pretrain"))
         pre_trainer = harness.Trainer(
-            lambda m, o, b, g: pretrain_step(m, o, b, cfg), None, pre_fit,
-            score_key="loss", score_mode="min", device=dev)
+            lambda m, o, b, g, mesh=None: pretrain_step(m, o, b, harness.with_mesh(cfg, mesh)),
+            None, pre_fit, score_key="loss", score_mode="min", device=dev, mesh=mesh)
         pre_trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
                         log=lambda m: log(f"[pretrain] {m}"))
     trainer = harness.Trainer(
-        lambda m, o, b, g: train_step(m, o, b, cfg, generator=g),
-        lambda m, b, g: eval_step(m, b, cfg, generator=g), cfg.fit,
-        score_key="loss", score_mode="min",
-        artifact_fn=artifact_fn, device=dev)
+        lambda m, o, b, g, mesh=None: train_step(m, o, b, harness.with_mesh(cfg, mesh),
+                                                 generator=g),
+        lambda m, b, g, mesh=None: eval_step(m, b, harness.with_mesh(cfg, mesh), generator=g),
+        cfg.fit, score_key="loss", score_mode="min", artifact_fn=artifact_fn, device=dev,
+        mesh=mesh)
     return trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
                        test_loader, log=log)
 
@@ -275,7 +279,13 @@ def evaluate(cfg: DCPTrainConfig, state_dict, test_loader, out_dir: str,
 def main(argv=None):
     """The JAX CLI's flags, ``--platform`` and ``--backend`` replaced by
     ``--device``. Returns ``train``'s (model, opt_state, history), or the
-    ``Eval.json`` summary with ``--eval_only``."""
+    ``Eval.json`` summary with ``--eval_only``. With
+    ``--dp`` / ``--sp`` it trains on dp x sp ranks of this host
+    (``harness.run_cli``) and returns None where it spawned them."""
+    return harness.run_cli(_parser, argv, _run)
+
+
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--data_path", required=True)
@@ -312,16 +322,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card; fails without one) or cpu (the plain path)")
-    harness.add_unported_flags(ap)
+    harness.add_mesh_flags(ap)
     harness.add_precision_and_debug_flags(ap)
-    args = ap.parse_args(argv)
-    harness.reject_unported(args, ap)
-    with harness.debug_scope(args):
-        return _run(args, ap)
+    return ap
 
 
-def _run(args, ap):
-    """``main`` after its flags are parsed."""
+def _run(args, ap, mesh=None):
+    """``main`` after its flags are parsed, on one rank of ``mesh`` if
+    given."""
     if args.init_from_ckpt and args.init_from_torch:
         ap.error("--init_from_ckpt and --init_from_torch are exclusive")
     dev = _device.resolve(args.device)
@@ -370,7 +378,8 @@ def _run(args, ap):
             epoch = int(state["epoch"])
         return evaluate(cfg, model.state_dict(), test_loader,
                         os.path.join(args.exp_dir, "eval"), epoch=epoch, device=dev)
-    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev)
+    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev,
+                 mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -56,11 +56,11 @@ def forward(model: SolveRegistration, batch, maxiter: int):
     return model(batch["points_tar_sample"], batch["points_src_sample"], maxiter=maxiter)
 
 
-def _monitors(g, batch):
+def _monitors(g, batch, cfg: FMRTrainConfig):
     """comp_inv (the MSE of g against inverse(igt)) and the Euler errors
     of g's rotation against the row-convention R."""
     loss_g = ((g - se3.inverse(batch["igt"])) ** 2).mean()
-    mae, rmse = EM.rotation_euler_errors(g[:, :3, :3].transpose(-1, -2), batch["R"], seq="xyz")
+    mae, rmse = L.euler_errors(g[:, :3, :3].transpose(-1, -2), batch["R"], cfg.loss)
     return loss_g, mae, rmse
 
 
@@ -71,34 +71,39 @@ def train_step(model: SolveRegistration, opt_state: harness.AdamState, batch,
     parameter, and the guarded Adam step at cfg.lr, in place on the model.
     Returns (opt_state, metrics): the loss's parts, ``loss``, ``loss_gt``,
     the Euler errors of the forward, ``nonfinite_steps`` and
-    ``n_singular``."""
+    ``n_singular``. Under ``cfg.loss.mesh`` the batch is this rank's dp
+    rows, ``u4`` the global batch's, the update averages over dp and
+    ``n_singular``, a count, is scaled to the global batch."""
     params = list(model.parameters())
     out = forward(model, batch, cfg.train_maxiter)
     total, parts = L.fmr_train_loss(out["g_series"], out["loss_ende"], batch, cfg.loss,
                                     cfg.train_maxiter, u4, generator)
     grads = debug.grad(total, params, allow_unused=True)
     loss = total.detach()
-    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss)
+    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss,
+                                                  cfg.loss.mesh)
     with torch.no_grad():
-        loss_g, mae, rmse = _monitors(out["g"], batch)
+        loss_g, mae, rmse = _monitors(out["g"], batch, cfg)
     return opt_state, dict(parts, loss=loss, loss_gt=loss_g, loss_rot_euler_mae=mae,
                            loss_rot_euler_rmse=rmse, nonfinite_steps=nonfinite,
-                           n_singular=out["n_singular"].float())
+                           n_singular=out["n_singular"].float() * L.dp_scale(cfg.loss))
 
 
 def eval_step(model: SolveRegistration, batch, cfg: FMRTrainConfig):
     """The validation battery at cfg.eval_maxiter: ``loss`` = comp_inv,
-    pp-wise, AE loss, dm, Euler errors and ``n_singular``. No lines."""
+    pp-wise, AE loss, dm, Euler errors and ``n_singular`` (scaled as in
+    ``train_step``). No lines."""
     out = forward(model, batch, cfg.eval_maxiter)
     g = out["g"]
     src = batch["points_src_sample"]
     pred = se3.transform(g[:, None], src)
     gt_src = se3.transform(se3.inverse(batch["igt"])[:, None], src)
     dm, _ = EM.dm_twist_error(g, batch["igt"])
-    loss_g, mae, rmse = _monitors(g, batch)
+    loss_g, mae, rmse = _monitors(g, batch, cfg)
     return dict(loss=loss_g, loss_pp_wise=(pred - gt_src).abs().mean(),
                 loss_ende=out["loss_ende"], dm=dm, loss_rot_euler_mae=mae,
-                loss_rot_euler_rmse=rmse, n_singular=out["n_singular"].float())
+                loss_rot_euler_rmse=rmse,
+                n_singular=out["n_singular"].float() * L.dp_scale(cfg.loss))
 
 
 def artifact_fn(model: SolveRegistration, batch, cfg: FMRTrainConfig):
@@ -121,13 +126,14 @@ def init_model(cfg: FMRTrainConfig, seed: int, device=None) -> SolveRegistration
 
 
 def train(cfg: FMRTrainConfig, train_loader, test_loader=None, init_from=None,
-          log=print, device=None):
+          log=print, device=None, mesh=None):
     """Full training on ``harness.Trainer``: the model from ``init_from`` (a
     state dict) or drawn from cfg.fit.seed, eval, checkpoints, metrics and
     artifacts under cfg.fit.exp_dir, resuming from its latest checkpoint.
     ``Loader``s go to the card once through ``maybe_device_cache``; any
-    other iterable of batch dicts is taken as it is. Returns (model,
-    opt_state, history)."""
+    other iterable of batch dicts is taken as it is. With a ``mesh``
+    (``parallel/mesh.py``) it trains on this rank's share of each batch.
+    Returns (model, opt_state, history)."""
     dev = _device.resolve(device)
     train_loader = DS.maybe_device_cache(train_loader, dev)
     if test_loader is not None:
@@ -136,10 +142,11 @@ def train(cfg: FMRTrainConfig, train_loader, test_loader=None, init_from=None,
     if init_from is not None:
         model.load_state_dict(init_from)
     trainer = harness.Trainer(
-        lambda m, o, b, g: train_step(m, o, b, cfg, generator=g),
-        lambda m, b, g: eval_step(m, b, cfg), cfg.fit,
+        lambda m, o, b, g, mesh=None: train_step(m, o, b, harness.with_mesh(cfg, mesh),
+                                                 generator=g),
+        lambda m, b, g, mesh=None: eval_step(m, b, harness.with_mesh(cfg, mesh)), cfg.fit,
         score_key="loss", score_mode="min",
-        artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev)
+        artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev, mesh=mesh)
     return trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
                        test_loader, log=log)
 
@@ -241,7 +248,13 @@ def load_reference(model, sd, optional: str = "decoder."):
 def main(argv=None):
     """The JAX CLI's flags, ``--platform`` and ``--backend`` replaced by
     ``--device``. Returns ``train``'s (model, opt_state, history), or the
-    mean dm with ``--eval_only``."""
+    mean dm with ``--eval_only``. With
+    ``--dp`` / ``--sp`` it trains on dp x sp ranks of this host
+    (``harness.run_cli``) and returns None where it spawned them."""
+    return harness.run_cli(_parser, argv, _run)
+
+
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--data_path", required=True)
@@ -273,16 +286,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card; fails without one) or cpu (the plain path)")
-    harness.add_unported_flags(ap)
+    harness.add_mesh_flags(ap)
     harness.add_precision_and_debug_flags(ap)
-    args = ap.parse_args(argv)
-    harness.reject_unported(args, ap)
-    with harness.debug_scope(args):
-        return _run(args, ap)
+    return ap
 
 
-def _run(args, ap):
-    """``main`` after its flags are parsed."""
+def _run(args, ap, mesh=None):
+    """``main`` after its flags are parsed, on one rank of ``mesh`` if
+    given."""
     if args.init_from_ckpt and args.init_from_torch:
         ap.error("--init_from_ckpt and --init_from_torch are exclusive")
     dev = _device.resolve(args.device)
@@ -338,7 +349,8 @@ def _run(args, ap):
              "opt_state": harness.adam_init(model.parameters()), "epoch": 0})
         if init_from is None:
             ap.error(f"no checkpoint under {args.init_from_ckpt}")
-    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev)
+    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev,
+                 mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -15,12 +15,22 @@ epoch, seeded from ``(FitConfig.seed, epoch)`` (eval's from ``(seed, epoch,
 1_000_000)``), the role of the JAX package's ``fold_in(root_key, epoch)``: a
 run killed after a checkpoint and resumed reproduces the losses of an
 uninterrupted one.
+
+With a (dp, sp) ``mesh`` (``parallel/mesh.py``) every rank runs ``fit``:
+each batch is cut to this rank's dp rows and the steps get the mesh it
+runs under (``Mesh.for_rows``: a batch whose size does not divide by dp
+goes whole to every rank); ``guarded_update`` averages the gradients and
+the loss over the dp group before Adam, so a non-finite value on one rank
+skips the step on all; the epoch metrics are averaged over the dp group;
+rank 0 alone writes the metrics log, the checkpoints and the artifacts,
+and every rank restores.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 from typing import Callable, Optional
 
@@ -31,6 +41,7 @@ from a_robust_registration_loss_tpu_torch import _device
 from a_robust_registration_loss_tpu_torch.data import objio
 from a_robust_registration_loss_tpu_torch.ops import adam
 from a_robust_registration_loss_tpu_torch.ops.adam import AdamState, ScheduledAdamState
+from a_robust_registration_loss_tpu_torch.parallel import mesh as PM
 from a_robust_registration_loss_tpu_torch.utils import CheckPointManager, MetricsWriter
 from a_robust_registration_loss_tpu_torch.utils import debug
 from a_robust_registration_loss_tpu_torch.utils.checkpoint import to_host
@@ -49,7 +60,7 @@ def adam_init(params) -> AdamState:
     return adam.init(torch.zeros(n, device=params[0].device))
 
 
-def guarded_update(lr: float, grads, opt_state: AdamState, params, loss):
+def guarded_update(lr: float, grads, opt_state: AdamState, params, loss, mesh=None):
     """One optax.adam(lr) step on the parameter tensors ``params``, in place,
     SKIPPED when the loss or any gradient is non-finite: then the
     parameters, both moments and the count stay bitwise as they were.
@@ -65,12 +76,20 @@ def guarded_update(lr: float, grads, opt_state: AdamState, params, loss):
     all parameters, so the step costs a few tens of launches whatever their
     number. ``grads`` may hold None for an unused parameter (a zero
     gradient). With ``--debug_nans`` (``utils/debug.py``) a NaN loss raises
-    ``FloatingPointError`` instead of being skipped."""
+    ``FloatingPointError`` instead of being skipped.
+
+    Under a ``mesh`` with dp > 1 the gradient and the loss are first
+    averaged over the dp group, in one collective: each rank's loss is its
+    rows' estimate of the global one, and a NaN or inf on any rank reaches
+    every rank's finiteness test."""
     debug.check_nans("the loss", loss)
     params = list(params)
     with torch.no_grad():
         g = torch.cat([(torch.zeros_like(p) if x is None else x).reshape(-1)
                        for x, p in zip(grads, params)])
+        if mesh is not None and mesh.dp > 1:
+            g = mesh.dp_mean(torch.cat([g, loss.reshape(1).to(g.dtype)]))
+            g, loss = g[:-1], g[-1]
         p = torch.cat([x.reshape(-1) for x in params])
         finite = torch.isfinite(loss) & torch.isfinite(g).all()
         new_p, state = adam.step(lr, g, opt_state, p, finite)
@@ -85,13 +104,14 @@ def scheduled_adam_init(params) -> ScheduledAdamState:
     return ScheduledAdamState(adam_state, torch.zeros_like(adam_state.count))
 
 
-def scheduled_update(schedule, grads, opt_state: ScheduledAdamState, params, loss):
+def scheduled_update(schedule, grads, opt_state: ScheduledAdamState, params, loss,
+                     mesh=None):
     """``guarded_update`` at the learning rate ``schedule(opt_state.count)``
     (a float or a 0-d tensor on the device, optax.adam(schedule)'s): the
     schedule's count advances with Adam's and, like it, stays where the
     step is skipped. Returns (ScheduledAdamState, nonfinite flag)."""
     adam_state, nonfinite = guarded_update(schedule(opt_state.count), grads, opt_state.adam,
-                                           params, loss)
+                                           params, loss, mesh)
     count = torch.where(nonfinite == 0, opt_state.count + 1, opt_state.count)
     return ScheduledAdamState(adam_state, count), nonfinite
 
@@ -171,12 +191,15 @@ class Trainer:
     train_step(model, opt_state, batch, generator) -> (opt_state, metrics)
     eval_step(model, batch, generator) -> metrics  (may contain score_key)
     artifact_fn(model, batch) -> (src, pred, tar, gt_src) of one sample
+
+    With a ``mesh`` the steps also take ``mesh=``, the mesh their batch
+    runs under (module docstring).
     """
 
     def __init__(self, train_step: Callable, eval_step: Optional[Callable],
                  cfg: FitConfig, score_key: str = "loss",
                  score_mode: str = "min",
-                 artifact_fn: Optional[Callable] = None, device=None):
+                 artifact_fn: Optional[Callable] = None, device=None, mesh=None):
         self.train_step = train_step
         self.eval_step = eval_step
         self.cfg = cfg
@@ -184,9 +207,11 @@ class Trainer:
         self.score_mode = score_mode
         self.artifact_fn = artifact_fn
         self.device = _device.resolve(device)
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0  # the rank that writes files
         os.makedirs(cfg.exp_dir, exist_ok=True)
-        self.writer = MetricsWriter(os.path.join(cfg.exp_dir, "logs"),
-                                    tensorboard=cfg.log_tensorboard)
+        self.writer = (MetricsWriter(os.path.join(cfg.exp_dir, "logs"),
+                                     tensorboard=cfg.log_tensorboard) if self.lead else None)
         self.ckpt = CheckPointManager(
             os.path.join(cfg.exp_dir, "checkpoints"),
             max_to_keep=cfg.max_to_keep,
@@ -197,6 +222,24 @@ class Trainer:
 
     def _put(self, batch):
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+
+    def _shard(self, batch):
+        """(this rank's rows of the batch on the device, the steps' keyword
+        arguments: the mesh it runs under)."""
+        batch = self._put(batch)
+        if self.mesh is None:
+            return batch, {}
+        mesh = self.mesh.for_rows(next(v.shape[0] for v in batch.values() if v.dim()))
+        return PM.shard_batch(batch, mesh), {"mesh": mesh}
+
+    def _dp_mean(self, metrics: dict) -> dict:
+        """The epoch's metrics averaged over the dp group: every rank holds
+        its rows' estimate of each batch's value."""
+        if self.mesh is None or self.mesh.dp == 1 or not metrics:
+            return metrics
+        keys = sorted(metrics)
+        mean = self.mesh.dp_mean(torch.tensor([metrics[k] for k in keys], dtype=torch.float64))
+        return dict(zip(keys, mean.tolist()))
 
     def _generator(self, *parts):
         gen = torch.Generator(device=self.device)
@@ -234,10 +277,12 @@ class Trainer:
             t0 = time.perf_counter()
             agg = _EpochMetrics()
             for batch in train_loader:
-                opt_state, metrics = self.train_step(model, opt_state, self._put(batch), gen)
+                batch, kw = self._shard(batch)
+                opt_state, metrics = self.train_step(model, opt_state, batch, gen, **kw)
                 agg.push(metrics)
-            train_metrics = agg.result()
-            self.writer.add_scalars(train_metrics, epoch, prefix="train/")
+            train_metrics = self._dp_mean(agg.result())
+            if self.lead:
+                self.writer.add_scalars(train_metrics, epoch, prefix="train/")
 
             eval_metrics = {}
             if self.eval_step is not None and test_loader is not None:
@@ -245,12 +290,18 @@ class Trainer:
                 eagg = _EpochMetrics()
                 with torch.no_grad():
                     for batch in test_loader:
-                        eagg.push(self.eval_step(model, self._put(batch), egen))
-                eval_metrics = eagg.result(counters=())
-                self.writer.add_scalars(eval_metrics, epoch, prefix="test/")
+                        batch, kw = self._shard(batch)
+                        eagg.push(self.eval_step(model, batch, egen, **kw))
+                eval_metrics = self._dp_mean(eagg.result(counters=()))
+                if self.lead:
+                    self.writer.add_scalars(eval_metrics, epoch, prefix="test/")
 
             score = eval_metrics.get(self.score_key,
                                      train_metrics.get(self.score_key))
+            history.append({"epoch": epoch, **train_metrics,
+                            **{f"test_{k}": v for k, v in eval_metrics.items()}})
+            if not self.lead:
+                continue
             if cfg.save_every and epoch % cfg.save_every == 0:
                 self.ckpt.save(
                     epoch,
@@ -266,8 +317,6 @@ class Trainer:
             dt = time.perf_counter() - t0
             self.writer.add_scalar("time/epoch_seconds", dt, epoch)
             self.writer.flush()
-            history.append({"epoch": epoch, **train_metrics,
-                            **{f"test_{k}": v for k, v in eval_metrics.items()}})
             log(f"epoch {epoch}: "
                 + " ".join(f"{k}={v:.6f}" for k, v in train_metrics.items())
                 + (" | test: " + " ".join(
@@ -275,25 +324,64 @@ class Trainer:
                    if eval_metrics else "")
                 + f" ({dt:.1f}s)")
         self.ckpt.wait_until_finished()  # commit any in-flight async save
+        if self.mesh is not None:
+            self.mesh.barrier()  # no rank restores before rank 0's files are written
         return model, opt_state, history
 
 
-def reject_unported(args, ap):
-    """The JAX CLI's flags whose paths are not ported: accepted at their
-    defaults only; any other value exits naming its ROADMAP.md Queue 1
-    item."""
-    for flag, default, item in (("dp", 0, "item 7 (data and line parallelism)"),
-                                ("sp", 1, "item 7 (data and line parallelism)")):
-        if getattr(args, flag) != default:
-            ap.exit(2, f"{ap.prog}: --{flag} {getattr(args, flag)} is not ported: "
-                       f"ROADMAP.md Queue 1 {item}\n")
+def add_mesh_flags(ap):
+    """The JAX CLI's ``--dp`` and ``--sp``."""
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel ranks (0 = one process); with --sp, dp x sp ranks "
+                         "on this host (spawned, or torchrun's) shard each batch over dp")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="line-parallel ranks: each sweeps its share of the metric's "
+                         "lines (see parallel/mesh.py); training only, --eval_only runs "
+                         "in one process")
 
 
-def add_unported_flags(ap):
-    """The JAX CLI's ``--dp`` and ``--sp``, accepted only at their defaults
-    (``reject_unported``)."""
-    ap.add_argument("--dp", type=int, default=0, help="not ported: only 0")
-    ap.add_argument("--sp", type=int, default=1, help="not ported: only 1")
+def mesh_shape(args, ap):
+    """(dp, sp) of ``--dp`` / ``--sp`` as the JAX CLIs read them (``--dp 0``
+    and ``--sp 1``: no mesh, None; otherwise dp is ``--dp`` or 1), or None
+    for ``--eval_only``; exits on a value below its minimum."""
+    if args.dp < 0 or args.sp < 1:
+        ap.error(f"--dp must be >= 0 and --sp >= 1 (got --dp {args.dp} --sp {args.sp})")
+    if args.eval_only or not (args.dp or args.sp > 1):
+        return None
+    return args.dp or 1, args.sp
+
+
+def with_mesh(cfg, mesh):
+    """A trainer config (one with a ``loss``) whose loss config runs under
+    ``mesh``; cfg itself where mesh is None."""
+    if mesh is None:
+        return cfg
+    return dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, mesh=mesh))
+
+
+def run_cli(parser: Callable, argv, run: Callable):
+    """A trainer CLI's body: the flags of ``parser()`` read from argv (the
+    command line when None), then ``run(args, ap)`` in this process under
+    the ``--debug_nans`` / ``--debug`` scope; or, with a mesh
+    (``mesh_shape``), ``run(args, ap, mesh)`` on each of dp x sp ranks
+    through ``parallel.mesh.launch``, which returns None when it spawned
+    them. ``parser`` and ``run`` are module-level functions: a spawned rank
+    imports them by name."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    shape = mesh_shape(args, ap)
+    if shape is None:
+        with debug_scope(args):
+            return run(args, ap)
+    return PM.launch(_cli_rank, *shape, args=(parser, run, argv), device=args.device)
+
+
+def _cli_rank(mesh, parser, run, argv):
+    ap = parser()
+    args = ap.parse_args(argv)
+    with debug_scope(args):
+        return run(args, ap, mesh)
 
 
 def add_precision_and_debug_flags(ap):

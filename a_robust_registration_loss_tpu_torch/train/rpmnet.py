@@ -48,7 +48,6 @@ import torch
 
 from a_robust_registration_loss_tpu_torch import _device
 from a_robust_registration_loss_tpu_torch.data import dataset as DS
-from a_robust_registration_loss_tpu_torch.eval import metrics as EM
 from a_robust_registration_loss_tpu_torch.models.dcp import reset_parameters
 from a_robust_registration_loss_tpu_torch.models.rpmnet import RPMNetConfig, RPMNetEarlyFusion
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
@@ -133,7 +132,8 @@ def train_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch,
     gradient of ``rpm_total_loss`` to every parameter, and the guarded Adam
     step at ``lr_schedule(cfg)`` of the schedule's count, in place on the
     model. Returns (opt_state, metrics): the losses, ``loss`` and
-    ``nonfinite_steps``."""
+    ``nonfinite_steps``. Under ``cfg.loss.mesh`` the batch is this rank's
+    dp rows, ``u4`` the global batch's, and the update averages over dp."""
     params = list(model.parameters())
     transforms, endpoints = forward(model, batch, cfg.num_train_reg_iter)
     losses, _ = L.rpm_cal_loss(transforms, endpoints["perm_matrices"], batch, cfg.loss, u4,
@@ -142,7 +142,7 @@ def train_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch,
     grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.scheduled_update(lr_schedule(cfg), grads, opt_state, params,
-                                                    loss)
+                                                    loss, cfg.loss.mesh)
     return opt_state, dict({k: v.detach() for k, v in losses.items()}, loss=loss,
                            nonfinite_steps=nonfinite)
 
@@ -155,8 +155,8 @@ def eval_step(model: RPMNetEarlyFusion, batch, cfg: RPMTrainConfig):
     src = batch["points_src_sample"][..., :3]
     pred_src = se3.rt_transform(transforms[-1], src)
     gt_src = se3.rt_transform(_gt_column(batch), src)
-    mae, rmse = EM.rotation_euler_errors(transforms[-1][..., :3, :3],
-                                         batch["R"].transpose(-1, -2), seq="xyz")
+    mae, rmse = L.euler_errors(transforms[-1][..., :3, :3], batch["R"].transpose(-1, -2),
+                               cfg.loss)
     return dict(loss=(gt_src - pred_src).abs().mean(),
                 loss_chamfer=G.chamfer_distance(batch["points_tar_sample"], pred_src),
                 loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse)
@@ -176,7 +176,7 @@ def pretrain_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch
     grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
     opt_state, nonfinite = harness.scheduled_update(lambda _: cfg.pretrain_lr, grads, opt_state,
-                                                    params, loss)
+                                                    params, loss, cfg.loss.mesh)
     return opt_state, dict(loss=loss, nonfinite_steps=nonfinite)
 
 
@@ -200,15 +200,16 @@ def init_model(cfg: RPMTrainConfig, seed: int, device=None) -> RPMNetEarlyFusion
 
 
 def train(cfg: RPMTrainConfig, train_loader, test_loader=None, init_from=None, log=print,
-          device=None):
+          device=None, mesh=None):
     """Full training: the model from ``init_from`` (a state dict) or drawn
     from cfg.fit.seed; identity pretraining for cfg.pretrain_epochs (its own
     Trainer under ``exp_dir/pretrain``, no checkpoints, run again on a
     resume: the main phase's checkpoint then replaces its result); then the
     main phase with eval, checkpoints, metrics and artifacts under
     cfg.fit.exp_dir, resuming from its latest checkpoint. ``Loader``s go to
-    the card once through ``maybe_device_cache``. Returns (model,
-    opt_state, history) of the main phase."""
+    the card once through ``maybe_device_cache``. With a ``mesh``
+    (``parallel/mesh.py``) both phases train on this rank's share of each
+    batch. Returns (model, opt_state, history) of the main phase."""
     dev = _device.resolve(device)
     train_loader = DS.maybe_device_cache(train_loader, dev)
     if test_loader is not None:
@@ -222,8 +223,9 @@ def train(cfg: RPMTrainConfig, train_loader, test_loader=None, init_from=None, l
         pre_fit = dataclasses.replace(
             cfg.fit, epochs=cfg.pretrain_epochs, save_every=0, artifacts_every=0,
             resume=False, exp_dir=os.path.join(cfg.fit.exp_dir, "pretrain"))
-        pre_trainer = harness.Trainer(lambda m, o, b, g: pretrain_step(m, o, b, cfg), None,
-                                      pre_fit, score_key="loss", device=dev)
+        pre_trainer = harness.Trainer(
+            lambda m, o, b, g, mesh=None: pretrain_step(m, o, b, harness.with_mesh(cfg, mesh)),
+            None, pre_fit, score_key="loss", device=dev, mesh=mesh)
         seen = [0]
 
         def pre_log(msg):
@@ -235,9 +237,12 @@ def train(cfg: RPMTrainConfig, train_loader, test_loader=None, init_from=None, l
         opt_state = (reset_schedule_count(opt_state) if cfg.pretrain_carry_moments
                      else harness.scheduled_adam_init(model.parameters()))
     trainer = harness.Trainer(
-        lambda m, o, b, g: train_step(m, o, b, cfg, generator=g),
-        lambda m, b, g: eval_step(m, b, cfg), cfg.fit, score_key="loss", score_mode="min",
-        artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev)
+        lambda m, o, b, g, mesh=None: train_step(m, o, b, harness.with_mesh(cfg, mesh),
+                                                 generator=g),
+        lambda m, b, g, mesh=None: eval_step(m, b, harness.with_mesh(cfg, mesh)), cfg.fit,
+        score_key="loss",
+        score_mode="min", artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev,
+        mesh=mesh)
     return trainer.fit(model, opt_state, train_loader, test_loader, log=log)
 
 
@@ -295,7 +300,13 @@ def evaluate(cfg: RPMTrainConfig, state_dict, test_loader, out_dir: str, log=pri
 def main(argv=None):
     """The JAX CLI's flags, ``--platform`` and ``--backend`` replaced by
     ``--device``. Returns ``train``'s (model, opt_state, history), or the
-    ``Val.json`` summary with ``--eval_only``."""
+    ``Val.json`` summary with ``--eval_only``. With
+    ``--dp`` / ``--sp`` it trains on dp x sp ranks of this host
+    (``harness.run_cli``) and returns None where it spawned them."""
+    return harness.run_cli(_parser, argv, _run)
+
+
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--data_path", required=True)
@@ -352,16 +363,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card; fails without one) or cpu (the plain path)")
-    harness.add_unported_flags(ap)
+    harness.add_mesh_flags(ap)
     harness.add_precision_and_debug_flags(ap)
-    args = ap.parse_args(argv)
-    harness.reject_unported(args, ap)
-    with harness.debug_scope(args):
-        return _run(args, ap)
+    return ap
 
 
-def _run(args, ap):
-    """``main`` after its flags are parsed."""
+def _run(args, ap, mesh=None):
+    """``main`` after its flags are parsed, on one rank of ``mesh`` if
+    given."""
     if args.partial is not None and args.noise_type != "crop":
         ap.error("--partial only applies with --noise_type crop")
     if args.init_from_ckpt and args.init_from_torch:
@@ -417,7 +426,8 @@ def _run(args, ap):
         init_from = load_params_from(args.init_from_ckpt, template)
         if init_from is None:
             ap.error(f"no checkpoint under {args.init_from_ckpt}")
-    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev)
+    return train(cfg, train_loader, test_loader, init_from=init_from, device=dev,
+                 mesh=mesh)
 
 
 if __name__ == "__main__":

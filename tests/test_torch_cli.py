@@ -3,8 +3,8 @@ builder, the neighbour precompute and the depth CLI, then DCP's, FMR's and
 RPM-Net's trainers: one epoch, the resume, ``--eval_only``,
 ``--init_from_ckpt`` and ``--init_from_torch``, writing the JAX CLIs' files
 (compare tests/test_cli.py); ``--dtype bfloat16``, ``--debug_nans`` and
-``--debug`` train, ``--dp`` and ``--sp`` exit naming their ROADMAP.md
-item.
+``--debug`` train, ``--dp`` and ``--sp`` below their minimum exit (their
+sharded runs: tests/test_torch_parallel_train.py).
 
 The dataset is built by the port's own ``make_dataset.main``. The
 trainers' metrics go to ``metrics.jsonl`` only: importing tensorboard
@@ -154,7 +154,7 @@ def test_dcp_cli(data, tmp_path, monkeypatch):
     start, _, _ = dcp.main(args + ["--exp_dir", str(tmp_path / "exp3"), "--init_from_torch",
                                    pth, "--epochs", "0"])
     assert _same_params(start.state_dict(), loaded)
-    for flag in (["--dp", "2"], ["--sp", "2"]):
+    for flag in (["--dp", "-1"], ["--sp", "0"]):
         with pytest.raises(SystemExit):
             dcp.main(args + ["--exp_dir", exp2] + flag)
     _trains_with_dtype_and_debug_flags(dcp.main, args, tmp_path, monkeypatch)
@@ -207,7 +207,7 @@ def test_fmr_cli(data, tmp_path, monkeypatch):
     _save_reference(start, pth)
     assert fmr.main(args + ["--exp_dir", exp4, "--eval_only", "--init_from_torch",
                             pth]) == dm and np.isfinite(dm)
-    for flag in (["--dp", "2"], ["--sp", "2"]):
+    for flag in (["--dp", "-1"], ["--sp", "0"]):
         with pytest.raises(SystemExit):
             fmr.main(args + ["--exp_dir", exp2] + flag)
     _trains_with_dtype_and_debug_flags(fmr.main, args, tmp_path, monkeypatch)
@@ -261,10 +261,10 @@ def test_rpmnet_cli(data, tmp_path, capsys, monkeypatch):
                                      "--rot_mag", "10", "--num_points", "48"])
     assert np.isfinite(hist[0]["loss"])
     capsys.readouterr()
-    for flag in (["--dp", "2"], ["--sp", "2"]):
+    for flag in (["--dp", "-1"], ["--sp", "0"]):
         with pytest.raises(SystemExit):
             rpmnet.main(args + ["--exp_dir", exp2] + flag)
-        assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err
+        assert "--dp must be >= 0 and --sp >= 1" in capsys.readouterr().err
     _trains_with_dtype_and_debug_flags(rpmnet.main, args, tmp_path, monkeypatch)
     for bad in (["--init_from_ckpt", exp, "--init_from_torch", pth], ["--partial", "0.5"]):
         with pytest.raises(SystemExit):

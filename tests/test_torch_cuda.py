@@ -45,7 +45,10 @@ card's ball indices): fp32 outputs, transforms within 0.05 and FMR's
 ``loss_ende`` within 5% relative (bf16 rounding that falls the other way
 where the two sides sum in other orders: the bars of ``chip_smoke.py``'s
 bf16 phases); and every kernel wrapper refusing a bf16 input rather than
-casting it.
+casting it; and two ranks sharing the card over gloo under (1, 2): each
+rank's stage-1 launches sweep its L/2 lines, the metric's values equal the
+one-process values on the card bit for bit and its gradient within 1e-5
+relative L2, and one classical step's loss and twists within 1e-6.
 """
 
 import numpy as np
@@ -806,3 +809,20 @@ def test_wrappers_refuse_a_bf16_input(cuda_device):
                        torch.zeros((1, 3), dtype=torch.int64, device=cuda_device))
     with pytest.raises(ValueError, match="float32"):
         PB.logistic_map(torch.zeros(8, **bf), 1)
+
+
+@pytest.mark.cuda
+def test_sp2_step_on_one_card_over_gloo(cuda_device, tmp_path):
+    import torch_parallel_ranks as TR
+
+    p = TR.problem(B=4)
+    v, dR, dt = TR.metric_rt(p, device="cuda")
+    loss, new = TR.classical_step(p, device="cuda")
+    L = p["lines"].shape[1]
+    for out in TR.launch(TR.card_sp2, 1, 2, tmp_path, args=(p,), device="cuda"):
+        assert out["swept"] == [L // 2, L // 2] and out["launches"] == 2
+        assert torch.equal(out["v"], v.cpu())
+        for got, want in ((out["dR"], dR), (out["dt"], dt)):
+            assert float((got - want.cpu()).norm() / want.norm()) <= 1e-5
+        np.testing.assert_allclose(out["loss"], loss, rtol=1e-6)
+        np.testing.assert_allclose(out["new"].numpy(), new.cpu().numpy(), rtol=1e-6, atol=1e-7)
