@@ -471,11 +471,17 @@ class DeviceCache:
         if rem is not None:
             yield self.gather(rem)
 
+    def next_epoch(self):
+        """``device_epoch`` of the current epoch, which then advances, as
+        iterating does: the plan of ``train/harness.py``'s scanned epoch."""
+        plan = self.device_epoch(self.epoch)
+        self.epoch += 1
+        return plan
+
     def __iter__(self):
         # not a generator: the epoch's index plan is copied when iteration
         # starts, not on the first batch
-        _, full, rem = self.device_epoch(self.epoch)
-        self.epoch += 1
+        _, full, rem = self.next_epoch()
         return self._batches(full, rem)
 
 

@@ -15,7 +15,9 @@ the trailing axis, and the SVD head solves all samples in one batched SVD.
 - Heads: SVD (soft correspondences + Kabsch) and MLP (quaternion).
 
 forward(src, tgt) -> (R_ab, t_ab, R_ba, t_ba), with ba the inverse of ab
-unless ``cycle``.
+unless ``cycle``. It is ``post_solve(solve(pre_solve(src, tgt)))``: the
+SVD head's solves read the host, so the trainers' CUDA graphs capture the
+pieces around them (``train/harness.py:Split``).
 
 Parameter names and shapes are those of the reference PyTorch DCP
 (``emb_nn.conv1.weight`` of shape (64, 3, 1), ``pointer.model.encoder.
@@ -278,7 +280,9 @@ class TransformerPointer(nn.Module):
 
 
 class SVDHead(nn.Module):
-    """Soft correspondences + differentiable Kabsch."""
+    """Soft correspondences + differentiable Kabsch: ``correlation``, then
+    the solve (``solve``: the SVD, which reads the host), then
+    ``transform``."""
 
     def __init__(self, cfg: DCPConfig):
         super().__init__()
@@ -300,11 +304,16 @@ class SVDHead(nn.Module):
         corr_c = src_corr - corr_mean[:, None]
         return src_c.transpose(-1, -2) @ corr_c, src_mean, corr_mean
 
+    @staticmethod
+    def solve(H, src_mean, corr_mean):
+        return svd_orientation(H), src_mean, corr_mean
+
+    @staticmethod
+    def transform(R, src_mean, corr_mean):
+        return R, -torch.einsum("bij,bj->bi", R, src_mean) + corr_mean
+
     def forward(self, src_emb, tgt_emb, src, tgt):
-        H, src_mean, corr_mean = self.correlation(src_emb, tgt_emb, src, tgt)
-        R = svd_orientation(H)
-        t = -torch.einsum("bij,bj->bi", R, src_mean) + corr_mean
-        return R, t
+        return self.transform(*self.solve(*self.correlation(src_emb, tgt_emb, src, tgt)))
 
 
 class MLPHead(nn.Module):
@@ -343,7 +352,11 @@ class DCP(nn.Module):
         self.pointer = TransformerPointer(cfg) if cfg.pointer == "transformer" else None
         self.head = SVDHead(cfg) if cfg.head == "svd" else MLPHead(cfg)
 
-    def forward(self, src, tgt):
+    def pre_solve(self, src, tgt):
+        """The forward up to the SVD head's solves, which read the host: a
+        tuple of the head's ``correlation`` outputs for (a, b), and with
+        ``cfg.cycle`` for (b, a) too. The MLP head has no solve: its (R, t)
+        for (a, b), and with ``cfg.cycle`` for (b, a)."""
         src_emb = self.emb_nn(src)
         tgt_emb = self.emb_nn(tgt)
         if self.pointer is not None:
@@ -352,13 +365,34 @@ class DCP(nn.Module):
             src_p, tgt_p = src_emb, tgt_emb  # identity: the residual doubles
         src_emb = src_emb + src_p
         tgt_emb = tgt_emb + tgt_p
-        R_ab, t_ab = self.head(src_emb, tgt_emb, src, tgt)
+        head = self.head if isinstance(self.head, MLPHead) else self.head.correlation
+        out = head(src_emb, tgt_emb, src, tgt)
         if self.cfg.cycle:
-            R_ba, t_ba = self.head(tgt_emb, src_emb, tgt, src)
+            out += head(tgt_emb, src_emb, tgt, src)
+        return out
+
+    def solve(self, pre):
+        """The SVDs of ``pre_solve``'s correlations (eager: they wait on the
+        host), each in the tuple's place; the MLP head's tuple as it is."""
+        if not isinstance(self.head, SVDHead):
+            return pre
+        return sum((SVDHead.solve(*pre[i:i + 3]) for i in range(0, len(pre), 3)), ())
+
+    def post_solve(self, solved):
+        """``solve``'s tuple -> (R_ab, t_ab, R_ba, t_ba)."""
+        if isinstance(self.head, SVDHead):
+            solved = sum((SVDHead.transform(*solved[i:i + 3])
+                          for i in range(0, len(solved), 3)), ())
+        R_ab, t_ab = solved[:2]
+        if self.cfg.cycle:
+            R_ba, t_ba = solved[2:]
         else:
             R_ba = R_ab.transpose(-1, -2)
             t_ba = -torch.einsum("bij,bj->bi", R_ba, t_ab)
         return R_ab, t_ab, R_ba, t_ba
+
+    def forward(self, src, tgt):
+        return self.post_solve(self.solve(self.pre_solve(src, tgt)))
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator):

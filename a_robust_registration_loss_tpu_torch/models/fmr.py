@@ -24,7 +24,9 @@ rule. ``torch.linalg.inv`` raises on a singular matrix (and its check
 waits for the device), and LAPACK and cuSOLVER refuse a NaN matrix, so a
 non-finite H is replaced by I before ``inv_ex`` and ``svdvals``, and
 ``inv_ex``'s info is ignored: ``ok`` and ``n_singular`` stay on the device.
-``svdvals`` is cuSOLVER's on the card and may wait for it.
+``svdvals`` is cuSOLVER's on the card and waits for it, so the forward is
+``post_solve(solve(pre_solve(p0, p1)), maxiter)`` and the trainers' CUDA
+graphs capture the pieces around ``solve`` (``train/harness.py:Split``).
 
 Parameter names and shapes are the reference PyTorch FMR's
 (``encoder.h1.0.weight`` (64, 3, 1), ``encoder.h2.7.weight``,
@@ -181,9 +183,9 @@ class SolveRegistration(nn.Module):
         f = f.reshape(B, 6, -1).transpose(1, 2)
         return (f0[..., None] - f) / dt[:, None, :]
 
-    def forward(self, p0, p1, maxiter: int | None = None):
-        cfg = self.cfg
-        maxiter = cfg.maxiter if maxiter is None else maxiter
+    def pre_solve(self, p0, p1):
+        """The forward up to the condition number's ``svdvals``: (H_safe,
+        Hinv, Jt, finite, f0, q1, a0, a1, loss_ende)."""
         B = p0.shape[0]
         dev, dtype = p0.device, p0.dtype
 
@@ -212,13 +214,27 @@ class SolveRegistration(nn.Module):
         eye6 = torch.eye(6, dtype=dtype, device=dev)
         H_safe = torch.where(finite[:, None, None], H, eye6)
         Hinv = torch.linalg.inv_ex(H_safe)[0]
-        sv = torch.linalg.svdvals(H_safe.detach())  # (B, 6), descending
+        return H_safe, Hinv, Jt, finite, f0, q1, a0, a1, loss_ende
+
+    @staticmethod
+    def solve(pre):
+        """``pre_solve``'s tuple and H's singular values (B, 6), descending
+        (eager: ``svdvals`` waits on the host)."""
+        return (*pre, torch.linalg.svdvals(pre[0].detach()))
+
+    def post_solve(self, solved, maxiter: int | None = None):
+        """``solve``'s tuple -> the forward's dict: the singular guard, then
+        maxiter IC updates."""
+        cfg = self.cfg
+        maxiter = cfg.maxiter if maxiter is None else maxiter
+        _, Hinv, Jt, finite, f0, q1, a0, a1, loss_ende, sv = solved
+        dev, dtype = q1.device, q1.dtype
         cond = sv[:, 0] / sv[:, -1].clamp_min(torch.finfo(dtype).tiny)
         ok = finite & torch.isfinite(Hinv).all(dim=-1).all(dim=-1) & (cond < 1e8)
         n_singular = (~ok).sum()
         pinv = torch.where(ok[:, None, None], Hinv, 0.0) @ Jt  # (B, 6, K)
 
-        g = eye4
+        g = torch.eye(4, dtype=dtype, device=dev).expand(a0.shape)
         g_series = []
         stopped = torch.zeros((), dtype=torch.bool, device=dev)
         r = None
@@ -234,3 +250,6 @@ class SolveRegistration(nn.Module):
         g_series = torch.stack([a0 @ gg @ a1 for gg in g_series])  # (maxiter, B, 4, 4)
         return dict(g=g_series[-1], g_series=g_series, r=r, loss_ende=loss_ende,
                     n_singular=n_singular)
+
+    def forward(self, p0, p1, maxiter: int | None = None):
+        return self.post_solve(self.solve(self.pre_solve(p0, p1)), maxiter)

@@ -28,7 +28,9 @@ between iterations, as the reference does.
 
 forward(xyz_src, norm_src, xyz_ref, norm_ref, num_iter) -> (transforms,
 endpoints): a list of (B, 3, 4) transforms, one per iteration, and the
-Sinkhorn matrices, beta and alpha of each.
+Sinkhorn matrices, beta and alpha of each. Each iteration's SVD reads the
+host, so the forward is also given in pieces between them (``pre_solve``,
+``solve``, ``step``, ``post_solve``) for the trainers' CUDA graphs.
 
 Parameter names and shapes are those of the reference PyTorch RPM-Net
 (``weights_net.prepool.0.weight`` (64, 4, 1), ``feat_extractor.prepool.0.
@@ -254,9 +256,9 @@ def match_features(feat_src, feat_ref):
     return G.square_distance(feat_src, feat_ref)
 
 
-def compute_rigid_transform(a, b, weights):
-    """Weighted Kabsch a -> b: a, b (B, N, 3), weights (B, N) ->
-    (B, 3, 4) [R | t]."""
+def kabsch_covariance(a, b, weights):
+    """``compute_rigid_transform`` up to its SVD: (the covariance (B, 3, 3),
+    its finiteness (B, 1, 1), ca, cb)."""
     w = weights[..., None] / (weights[..., None].sum(dim=1, keepdim=True) + _EPS)
     ca = (a * w).sum(dim=1)
     cb = (b * w).sum(dim=1)
@@ -264,6 +266,12 @@ def compute_rigid_transform(a, b, weights):
     b_c = b - cb[:, None, :]
     cov = a_c.transpose(-1, -2) @ (b_c * w)
     finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)[:, None, None]
+    return cov, finite, ca, cb
+
+
+def kabsch_rotation(cov, finite):
+    """The SVD's rotation with the +-V choice, NaN where ``finite`` is not
+    (eager in the trainers' CUDA graphs: cuSOLVER waits on the host)."""
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
     U, _, Vh = torch.linalg.svd(torch.where(finite, cov, eye))
     V = Vh.transpose(-1, -2)
@@ -271,9 +279,20 @@ def compute_rigid_transform(a, b, weights):
     R_pos = V @ Ut
     R_neg = torch.cat([V[..., :2], -V[..., 2:]], dim=-1) @ Ut
     R = torch.where((torch.linalg.det(R_pos) > 0)[:, None, None], R_pos, R_neg)
-    R = torch.where(finite, R, float("nan"))
+    return torch.where(finite, R, float("nan"))
+
+
+def kabsch_transform(R, ca, cb):
+    """(B, 3, 4) [R | t] of the rotation and the weighted centroids."""
     t = -torch.einsum("bij,bj->bi", R, ca) + cb
     return torch.cat([R, t[..., None]], dim=-1)
+
+
+def compute_rigid_transform(a, b, weights):
+    """Weighted Kabsch a -> b: a, b (B, N, 3), weights (B, N) ->
+    (B, 3, 4) [R | t]."""
+    cov, finite, ca, cb = kabsch_covariance(a, b, weights)
+    return kabsch_transform(kabsch_rotation(cov, finite), ca, cb)
 
 
 def rt_transform_points_normals(g, pts, normals):
@@ -295,28 +314,59 @@ class RPMNetEarlyFusion(nn.Module):
                             else ParameterPredictionNet(compute_dtype(cfg.dtype)))
         self.feat_extractor = FeatExtractionEarlyFusion(cfg)
 
+    def _iteration(self, xyz_src, xyz_ref, norm_ref, xyz_src_t, norm_src_t):
+        """One registration iteration up to Kabsch's SVD: (cov, finite, ca,
+        cb, perm, beta, alpha)."""
+        cfg = self.cfg
+        beta, alpha = self.weights_net(xyz_src_t, xyz_ref)
+        feat_src = self.feat_extractor(xyz_src_t, norm_src_t)
+        feat_ref = self.feat_extractor(xyz_ref, norm_ref)
+        dist = match_features(feat_src, feat_ref)
+        affinity = -beta[:, None, None] * (dist - alpha[:, None, None])
+        perm = torch.exp(sinkhorn(affinity, cfg.num_sk_iter, cfg.add_slack))
+        weighted_ref = (perm @ xyz_ref) / (perm.sum(dim=2, keepdim=True) + _EPS)
+        return (*kabsch_covariance(xyz_src, weighted_ref, perm.sum(dim=2)), perm, beta, alpha)
+
+    def pre_solve(self, xyz_src, norm_src, xyz_ref, norm_ref):
+        """The first iteration up to its SVD. The forward is ``pre_solve``,
+        then ``solve`` and ``step`` for each further iteration, then
+        ``solve`` and ``post_solve``: the SVDs read the host, so the
+        trainers' CUDA graphs capture the pieces between them. The tuple
+        carries the iterations done, (transform, perm, beta, alpha) each,
+        and the open one's (cov, finite, ca, cb, perm, beta, alpha)."""
+        return self._iteration(xyz_src, xyz_ref, norm_ref, xyz_src, norm_src)
+
+    @staticmethod
+    def solve(state):
+        """The open iteration's rotation in place of its (cov, finite)."""
+        return (*state[:-7], kabsch_rotation(*state[-7:-5]), *state[-5:])
+
+    @staticmethod
+    def _close(solved):
+        return (*solved[:-6], kabsch_transform(*solved[-6:-3]), *solved[-3:])
+
+    def step(self, xyz_src, norm_src, xyz_ref, norm_ref, solved):
+        """Close the solved iteration, then the next one up to its SVD,
+        from the source moved by the closed transform, detached."""
+        done = self._close(solved)
+        xyz_src_t, norm_src_t = rt_transform_points_normals(done[-4].detach(), xyz_src,
+                                                            norm_src)
+        return (*done, *self._iteration(xyz_src, xyz_ref, norm_ref, xyz_src_t, norm_src_t))
+
+    def post_solve(self, solved):
+        """Close the last iteration -> (transforms, endpoints)."""
+        done = self._close(solved)
+        return list(done[0::4]), {"perm_matrices": list(done[1::4]), "beta": list(done[2::4]),
+                                  "alpha": list(done[3::4])}
+
     def forward(self, xyz_src, norm_src, xyz_ref, norm_ref, num_iter: int = 2):
         """Returns (transforms, endpoints): a (B, 3, 4) transform per
         iteration, and ``perm_matrices``, ``beta`` and ``alpha`` per
         iteration. Iteration i + 1 starts from the source moved by iteration
         i's transform, detached."""
-        cfg = self.cfg
-        endpoints = {"perm_matrices": [], "beta": [], "alpha": []}
-        xyz_src_t, norm_src_t = xyz_src, norm_src
-        transforms = []
-        for _ in range(num_iter):
-            beta, alpha = self.weights_net(xyz_src_t, xyz_ref)
-            feat_src = self.feat_extractor(xyz_src_t, norm_src_t)
-            feat_ref = self.feat_extractor(xyz_ref, norm_ref)
-            dist = match_features(feat_src, feat_ref)
-            affinity = -beta[:, None, None] * (dist - alpha[:, None, None])
-            perm = torch.exp(sinkhorn(affinity, cfg.num_sk_iter, cfg.add_slack))
-            weighted_ref = (perm @ xyz_ref) / (perm.sum(dim=2, keepdim=True) + _EPS)
-            transform = compute_rigid_transform(xyz_src, weighted_ref, perm.sum(dim=2))
-            xyz_src_t, norm_src_t = rt_transform_points_normals(transform.detach(), xyz_src,
-                                                                norm_src)
-            transforms.append(transform)
-            endpoints["perm_matrices"].append(perm)
-            endpoints["beta"].append(beta)
-            endpoints["alpha"].append(alpha)
-        return transforms, endpoints
+        if num_iter < 1:
+            return [], {"perm_matrices": [], "beta": [], "alpha": []}
+        state = self.pre_solve(xyz_src, norm_src, xyz_ref, norm_ref)
+        for _ in range(num_iter - 1):
+            state = self.step(xyz_src, norm_src, xyz_ref, norm_ref, self.solve(state))
+        return self.post_solve(self.solve(state))

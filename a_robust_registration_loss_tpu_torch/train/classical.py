@@ -24,7 +24,10 @@ valid.
 PyTorch idiom: the step is a plain function, ``run`` a Python loop over
 steps with no host sync inside a step; all randomness comes from one
 ``torch.Generator``. The step carry is ``(params, AdamState, src_prev)``,
-as the JAX carry is ``(params, opt_state, src_prev)``.
+as the JAX carry is ``(params, opt_state, src_prev)``. Where the JAX
+package scans a block of steps in one program, on the card the loop
+replays a CUDA graph of the step once an epoch (``_loop``,
+``train/graphs.py``); on the CPU it calls the step.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
 from a_robust_registration_loss_tpu_torch.ops.adam import AdamState
 from a_robust_registration_loss_tpu_torch.se3 import se3
+from a_robust_registration_loss_tpu_torch.train import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,36 +196,105 @@ def run(src_vertices, tar_vertices, cfg: ClassicalConfig = ClassicalConfig(),
     else:
         params = torch.as_tensor(np.asarray(init_params, np.float32),
                                  device=dev).reshape(6)
-    return _loop(cfg, make_step(cfg, data), params, data["src"], gen, callback)
+    carry, hist = _loop(cfg, make_step(cfg, data), params, data["src"], gen, callback)
+    return carry[0], hist
 
 
-def _loop(cfg: ClassicalConfig, step, params, src, gen, callback):
+def _loop(cfg: ClassicalConfig, step, params, src, gen, callback, mode=None):
     """The epochs of ``run`` and ``run_batch``: blocks of cfg.log_every
     steps, each step's uniforms drawn from ``gen`` (shaped (4, C), or
     (B, 4, C) for a batch of twists (B, 6)), each block's metrics fetched
-    one block late."""
+    one block late.
+
+    ``mode``: "eager", the reference, calls ``step`` once an epoch; "graph"
+    (the card only) replays a CUDA graph of the step (``train/graphs.py``,
+    the JAX package's scanned block); "static" runs the graph's loop with
+    the step called eagerly in its place, the graph's stand-in on the CPU.
+    By default "graph" on the card and "eager" on the CPU. Returns (the
+    final carry, the history of per-epoch metric arrays)."""
+    if mode is None:
+        mode = "graph" if params.is_cuda else "eager"
+    if mode not in ("eager", "graph", "static"):
+        raise ValueError(f"_loop: unknown mode {mode!r}")
     carry = (params, init_adam(params), src)
     u4_shape = params.shape[:-1] + (4, LN.ROUNDS * cfg.n_lines)
+    epochs = _eager_block if mode == "eager" else _static_block
+    # the static carry changes in place: a block's end is kept as a copy
+    keep = (lambda t: t) if mode == "eager" else torch.clone
+    state = dict(mode=mode, graph=None)
     history = []
     pending = None
     done = 0
-    while done < cfg.n_epochs:
-        # the final block runs only the remaining epochs
-        block = []
-        for _ in range(min(cfg.log_every, cfg.n_epochs - done)):
-            u4 = torch.rand(u4_shape, generator=gen, device=params.device)
-            carry, metrics = step(carry, u4)
-            block.append(metrics)
-        done += len(block)
+    try:
+        while done < cfg.n_epochs:
+            # the final block runs only the remaining epochs
+            n = min(cfg.log_every, cfg.n_epochs - done)
+            carry, block = epochs(step, carry, u4_shape, gen, n, state)
+            done += n
+            if pending is not None:
+                _flush(pending, history, callback)
+            pending = (done, keep(carry[0]), block, keep(carry[2]))
         if pending is not None:
             _flush(pending, history, callback)
-        pending = (done, carry[0],
-                   {k: torch.stack([m[k] for m in block]) for k in block[0]},
-                   carry[2])
-    if pending is not None:
-        _flush(pending, history, callback)
+    finally:
+        state.clear()  # the graph and its memory pool go with the run
     hist = {k: np.concatenate([h[k] for h in history]) for k in history[0]}
-    return carry[0], hist
+    return carry, hist
+
+
+def _eager_block(step, carry, u4_shape, gen, n, state):
+    """n epochs, a step call each; the block's metrics stacked."""
+    block = []
+    for _ in range(n):
+        u4 = torch.rand(u4_shape, generator=gen, device=carry[0].device)
+        carry, metrics = step(carry, u4)
+        block.append(metrics)
+    return carry, {k: torch.stack([m[k] for m in block]) for k in block[0]}
+
+
+def _static_block(step, carry, u4_shape, gen, n, state):
+    """n epochs through static buffers: each epoch's uniforms drawn into
+    one buffer (the same draw as ``torch.rand(u4_shape)``), then the graph
+    replayed ("graph") or the step called on the static carry ("static"),
+    its metrics copied into the block's preallocated rows before the next
+    epoch overwrites them. The first epoch of a run is an eager step on the
+    run's own state: it builds what the capture must find built (the
+    kernel library, cuBLAS's handles), and its carry becomes the static
+    carry that the graph updates in place."""
+    dev = carry[0].device
+    if "u4" not in state:
+        state["u4"] = torch.empty(u4_shape, device=dev)
+    u4 = state["u4"]
+    rows = None
+    for i in range(n):
+        torch.rand(u4_shape, generator=gen, device=dev, out=u4)
+        if state["graph"] is None:
+            carry, metrics = step(carry, u4)
+            if state["mode"] == "graph":
+                state["graph"] = graphs.step_graph(step, carry, (u4,))
+            else:
+                state["graph"] = _EagerStep(step, carry, (u4,))
+        else:
+            metrics = state["graph"].replay()
+        if rows is None:
+            rows = {k: torch.empty((n, *v.shape), dtype=v.dtype, device=dev)
+                    for k, v in metrics.items()}
+        for k, v in metrics.items():
+            rows[k][i].copy_(v)
+    return carry, rows
+
+
+class _EagerStep:
+    """``graphs.step_graph``'s stand-in on the CPU: each replay calls the
+    step on the static carry and copies the new carry into it."""
+
+    def __init__(self, step, carry, inputs):
+        self.step, self.carry, self.inputs = step, carry, inputs
+
+    def replay(self):
+        new, out = self.step(self.carry, *self.inputs)
+        graphs.copy_carry(self.carry, new)
+        return out
 
 
 def _flush(pending, history, callback):
@@ -356,4 +429,5 @@ def run_batch(src_batch, tar_batch, cfg: ClassicalConfig = ClassicalConfig(),
     else:
         params = torch.as_tensor(np.asarray(init_params, np.float32),
                                  device=dev).reshape(B, 6)
-    return _loop(cfg, make_batch_step(cfg, data), params, data["src"], gen, callback)
+    carry, hist = _loop(cfg, make_batch_step(cfg, data), params, data["src"], gen, callback)
+    return carry[0], hist

@@ -36,9 +36,9 @@ from a_robust_registration_loss_tpu_torch.data import dataset as DS
 from a_robust_registration_loss_tpu_torch.data import objio
 from a_robust_registration_loss_tpu_torch.eval import metrics as EM
 from a_robust_registration_loss_tpu_torch.models.dcp import DCP, DCPConfig, reset_parameters
+from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
-from a_robust_registration_loss_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +58,32 @@ def forward(model: DCP, batch):
     return model(batch["points_src_sample"], batch["points_tar_sample"])
 
 
+def _pre(model: DCP, batch, u4):
+    return model.pre_solve(batch["points_src_sample"], batch["points_tar_sample"])
+
+
+def _solve(model: DCP, pre):
+    return model.solve(pre)
+
+
+def _lines(cfg: DCPTrainConfig):
+    return lambda B: (B * L.dp_scale(cfg.loss), 4, LN.ROUNDS * cfg.loss.n_lines)
+
+
+def train_split(cfg: DCPTrainConfig) -> harness.Split:
+    """``train_step`` cut at the SVD head's solves (``harness.Split``):
+    the network to the correlations, the SVDs, then the transforms,
+    ``dcp_train_loss`` on the uniforms ``u4`` and the guarded Adam step at
+    cfg.lr."""
+    def post(model, batch, u4, solved):
+        return L.dcp_train_loss(batch, *model.post_solve(solved), cfg.loss, u4)
+
+    def update(grads, opt_state, params, loss):
+        return harness.guarded_update(cfg.lr, grads, opt_state, params, loss, cfg.loss.mesh)
+
+    return harness.Split((_pre, post), _solve, _lines(cfg), update)
+
+
 def train_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainConfig,
                u4=None, generator=None):
     """One training step: the forward, ``dcp_train_loss`` (lines from ``u4``
@@ -67,14 +93,27 @@ def train_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainCon
     where a non-finite loss or gradient left the model and the state as
     they were). Under ``cfg.loss.mesh`` the batch is this rank's dp rows,
     ``u4`` the global batch's, and the update averages over dp."""
-    params = list(model.parameters())
-    R_ab, t_ab, R_ba, t_ba = forward(model, batch)
-    loss, monitors = L.dcp_train_loss(batch, R_ab, t_ab, R_ba, t_ba, cfg.loss, u4, generator)
-    grads = debug.grad(loss, params, allow_unused=True)
-    loss = loss.detach()
-    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss,
-                                                  cfg.loss.mesh)
-    return opt_state, dict(monitors, loss=loss, nonfinite_steps=nonfinite)
+    split = train_split(cfg)
+    if u4 is None:
+        u4 = harness.draw(split, batch, generator)
+    return harness.run_split(split, model, batch, u4, opt_state)
+
+
+def pretrain_split(cfg: DCPTrainConfig) -> harness.Split:
+    """``pretrain_step`` as a ``harness.Split``: no lines."""
+    def post(model, batch, u4, solved):
+        R_ab, t_ab, _, _ = model.post_solve(solved)
+        loss = EM.gt_consistency_loss(R_ab, t_ab, batch["R"], batch["T"])
+        with torch.no_grad():
+            mae, rmse = L.euler_errors(R_ab, batch["R"], cfg.loss)
+            return loss, dict(loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse,
+                              loss_translation=EM.translation_mse(t_ab, batch["T"]))
+
+    def update(grads, opt_state, params, loss):
+        return harness.guarded_update(cfg.pretrain_lr, grads, opt_state, params, loss,
+                                      cfg.loss.mesh)
+
+    return harness.Split((_pre, post), _solve, None, update)
 
 
 def pretrain_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrainConfig):
@@ -82,18 +121,7 @@ def pretrain_step(model: DCP, opt_state: harness.AdamState, batch, cfg: DCPTrain
     batch's ground truth, the guarded Adam step at cfg.pretrain_lr, and the
     Euler and translation monitors of the predictions before the step. No
     lines are drawn. Returns (opt_state, metrics)."""
-    params = list(model.parameters())
-    R_ab, t_ab, _, _ = forward(model, batch)
-    loss = EM.gt_consistency_loss(R_ab, t_ab, batch["R"], batch["T"])
-    grads = debug.grad(loss, params, allow_unused=True)
-    loss = loss.detach()
-    opt_state, nonfinite = harness.guarded_update(cfg.pretrain_lr, grads, opt_state, params,
-                                                  loss, cfg.loss.mesh)
-    with torch.no_grad():
-        mae, rmse = L.euler_errors(R_ab, batch["R"], cfg.loss)
-        return opt_state, dict(loss=loss, loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse,
-                               loss_translation=EM.translation_mse(t_ab, batch["T"]),
-                               nonfinite_steps=nonfinite)
+    return harness.run_split(pretrain_split(cfg), model, batch, None, opt_state)
 
 
 def init_model(cfg: DCPTrainConfig, seed: int, device=None) -> DCP:
@@ -129,7 +157,8 @@ def train(cfg: DCPTrainConfig, train_loader, test_loader=None, init_from=None,
             exp_dir=os.path.join(cfg.fit.exp_dir, "pretrain"))
         pre_trainer = harness.Trainer(
             lambda m, o, b, g, mesh=None: pretrain_step(m, o, b, harness.with_mesh(cfg, mesh)),
-            None, pre_fit, score_key="loss", score_mode="min", device=dev, mesh=mesh)
+            None, pre_fit, score_key="loss", score_mode="min", device=dev, mesh=mesh,
+            train_split=pretrain_split(cfg))
         pre_trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
                         log=lambda m: log(f"[pretrain] {m}"))
     trainer = harness.Trainer(
@@ -137,16 +166,18 @@ def train(cfg: DCPTrainConfig, train_loader, test_loader=None, init_from=None,
                                                  generator=g),
         lambda m, b, g, mesh=None: eval_step(m, b, harness.with_mesh(cfg, mesh), generator=g),
         cfg.fit, score_key="loss", score_mode="min", artifact_fn=artifact_fn, device=dev,
-        mesh=mesh)
+        mesh=mesh, train_split=train_split(cfg), eval_split=eval_split(cfg))
     return trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
                        test_loader, log=log)
 
 
-def _eval_batch(model, batch, cfg: DCPTrainConfig, u4=None, generator=None):
-    """One network run -> (metrics, (R_ab, t_ab, R_ba, t_ba), pred, gt):
-    eval_step's battery, and the transforms and transformed source clouds
-    that the artifact pass writes."""
-    R_ab, t_ab, R_ba, t_ba = forward(model, batch)
+def _eval_batch(model, batch, cfg: DCPTrainConfig, u4=None, generator=None, solved=None):
+    """One network run (or its ``solve`` tuple, ``solved``) -> (metrics,
+    (R_ab, t_ab, R_ba, t_ba), pred, gt): eval_step's battery, and the
+    transforms and transformed source clouds that the artifact pass
+    writes."""
+    R_ab, t_ab, R_ba, t_ba = (forward(model, batch) if solved is None
+                              else model.post_solve(solved))
     loss_inter, monitors = L.dcp_cal_loss(batch, R_ab, t_ab, cfg.loss, u4, generator)
     src = batch["points_src_sample"]
     tar = batch["points_tar_sample"]
@@ -170,6 +201,14 @@ def _eval_batch(model, batch, cfg: DCPTrainConfig, u4=None, generator=None):
         out["cycle_loss"] = cyc
     out["loss"] = loss  # the test pass's total: loss_gt (+ 0.1 * cycle)
     return out, (R_ab, t_ab, R_ba, t_ba), pred, gt
+
+
+def eval_split(cfg: DCPTrainConfig) -> harness.Split:
+    """``eval_step`` as a ``harness.Split``."""
+    def post(model, batch, u4, solved):
+        return _eval_batch(model, batch, cfg, u4, solved=solved)[0]
+
+    return harness.Split((_pre, post), _solve, _lines(cfg))
 
 
 def eval_step(model: DCP, batch, cfg: DCPTrainConfig, u4=None, generator=None):

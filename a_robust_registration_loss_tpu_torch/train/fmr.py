@@ -36,10 +36,10 @@ from a_robust_registration_loss_tpu_torch.data import dataset as DS
 from a_robust_registration_loss_tpu_torch.eval import metrics as EM
 from a_robust_registration_loss_tpu_torch.models.dcp import reset_parameters
 from a_robust_registration_loss_tpu_torch.models.fmr import FMRConfig, SolveRegistration
+from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
-from a_robust_registration_loss_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +64,37 @@ def _monitors(g, batch, cfg: FMRTrainConfig):
     return loss_g, mae, rmse
 
 
+def _pre(model: SolveRegistration, batch, u4):
+    return model.pre_solve(batch["points_tar_sample"], batch["points_src_sample"])
+
+
+def _solve(model: SolveRegistration, pre):
+    return model.solve(pre)
+
+
+def train_split(cfg: FMRTrainConfig) -> harness.Split:
+    """``train_step`` cut at ``svdvals`` (``harness.Split``): the encoder
+    passes and the Jacobian, the singular values, then the IC iterations,
+    ``fmr_train_loss`` on the uniforms ``u4``, the monitors and the guarded
+    Adam step at cfg.lr."""
+    def post(model, batch, u4, solved):
+        out = model.post_solve(solved, cfg.train_maxiter)
+        total, parts = L.fmr_train_loss(out["g_series"], out["loss_ende"], batch, cfg.loss,
+                                        cfg.train_maxiter, u4)
+        with torch.no_grad():
+            loss_g, mae, rmse = _monitors(out["g"], batch, cfg)
+        return total, dict(parts, loss_gt=loss_g, loss_rot_euler_mae=mae,
+                           loss_rot_euler_rmse=rmse,
+                           n_singular=out["n_singular"].float() * L.dp_scale(cfg.loss))
+
+    def update(grads, opt_state, params, loss):
+        return harness.guarded_update(cfg.lr, grads, opt_state, params, loss, cfg.loss.mesh)
+
+    return harness.Split((_pre, post), _solve,
+                         lambda B: (B * L.dp_scale(cfg.loss), 4, LN.ROUNDS * cfg.loss.n_lines),
+                         update)
+
+
 def train_step(model: SolveRegistration, opt_state: harness.AdamState, batch,
                cfg: FMRTrainConfig, u4=None, generator=None):
     """One training step: the forward at cfg.train_maxiter, ``fmr_train_loss``
@@ -74,26 +105,13 @@ def train_step(model: SolveRegistration, opt_state: harness.AdamState, batch,
     ``n_singular``. Under ``cfg.loss.mesh`` the batch is this rank's dp
     rows, ``u4`` the global batch's, the update averages over dp and
     ``n_singular``, a count, is scaled to the global batch."""
-    params = list(model.parameters())
-    out = forward(model, batch, cfg.train_maxiter)
-    total, parts = L.fmr_train_loss(out["g_series"], out["loss_ende"], batch, cfg.loss,
-                                    cfg.train_maxiter, u4, generator)
-    grads = debug.grad(total, params, allow_unused=True)
-    loss = total.detach()
-    opt_state, nonfinite = harness.guarded_update(cfg.lr, grads, opt_state, params, loss,
-                                                  cfg.loss.mesh)
-    with torch.no_grad():
-        loss_g, mae, rmse = _monitors(out["g"], batch, cfg)
-    return opt_state, dict(parts, loss=loss, loss_gt=loss_g, loss_rot_euler_mae=mae,
-                           loss_rot_euler_rmse=rmse, nonfinite_steps=nonfinite,
-                           n_singular=out["n_singular"].float() * L.dp_scale(cfg.loss))
+    split = train_split(cfg)
+    if u4 is None:
+        u4 = harness.draw(split, batch, generator)
+    return harness.run_split(split, model, batch, u4, opt_state)
 
 
-def eval_step(model: SolveRegistration, batch, cfg: FMRTrainConfig):
-    """The validation battery at cfg.eval_maxiter: ``loss`` = comp_inv,
-    pp-wise, AE loss, dm, Euler errors and ``n_singular`` (scaled as in
-    ``train_step``). No lines."""
-    out = forward(model, batch, cfg.eval_maxiter)
+def _eval(model: SolveRegistration, batch, cfg: FMRTrainConfig, out):
     g = out["g"]
     src = batch["points_src_sample"]
     pred = se3.transform(g[:, None], src)
@@ -104,6 +122,21 @@ def eval_step(model: SolveRegistration, batch, cfg: FMRTrainConfig):
                 loss_ende=out["loss_ende"], dm=dm, loss_rot_euler_mae=mae,
                 loss_rot_euler_rmse=rmse,
                 n_singular=out["n_singular"].float() * L.dp_scale(cfg.loss))
+
+
+def eval_split(cfg: FMRTrainConfig) -> harness.Split:
+    """``eval_step`` as a ``harness.Split``: no lines."""
+    def post(model, batch, u4, solved):
+        return _eval(model, batch, cfg, model.post_solve(solved, cfg.eval_maxiter))
+
+    return harness.Split((_pre, post), _solve)
+
+
+def eval_step(model: SolveRegistration, batch, cfg: FMRTrainConfig):
+    """The validation battery at cfg.eval_maxiter: ``loss`` = comp_inv,
+    pp-wise, AE loss, dm, Euler errors and ``n_singular`` (scaled as in
+    ``train_step``). No lines."""
+    return _eval(model, batch, cfg, forward(model, batch, cfg.eval_maxiter))
 
 
 def artifact_fn(model: SolveRegistration, batch, cfg: FMRTrainConfig):
@@ -146,7 +179,8 @@ def train(cfg: FMRTrainConfig, train_loader, test_loader=None, init_from=None,
                                                  generator=g),
         lambda m, b, g, mesh=None: eval_step(m, b, harness.with_mesh(cfg, mesh)), cfg.fit,
         score_key="loss", score_mode="min",
-        artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev, mesh=mesh)
+        artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev, mesh=mesh,
+        train_split=train_split(cfg), eval_split=eval_split(cfg))
     return trainer.fit(model, harness.adam_init(model.parameters()), train_loader,
                        test_loader, log=log)
 

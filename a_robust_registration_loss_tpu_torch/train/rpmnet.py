@@ -51,11 +51,11 @@ from a_robust_registration_loss_tpu_torch.data import dataset as DS
 from a_robust_registration_loss_tpu_torch.models.dcp import reset_parameters
 from a_robust_registration_loss_tpu_torch.models.rpmnet import RPMNetConfig, RPMNetEarlyFusion
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
+from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops.adam import ScheduledAdamState
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import harness
 from a_robust_registration_loss_tpu_torch.train import losses as L
-from a_robust_registration_loss_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +125,43 @@ def _gt_column(batch):
     return torch.cat([batch["R"].transpose(-1, -2), batch["T"][..., None]], dim=-1)
 
 
+def _clouds(batch):
+    return (batch["points_src_sample"], batch["normals_src"], batch["points_tar_sample"],
+            batch["normals_tar"])
+
+
+def _split(num_iter: int, last, lines=None, update=None) -> harness.Split:
+    """The forward at ``num_iter`` iterations cut at its Kabsch SVDs, then
+    ``last(model, batch, u4, (transforms, endpoints))``."""
+    def first(model, batch, u4):
+        return model.pre_solve(*_clouds(batch))
+
+    def step(model, batch, u4, solved):
+        return model.step(*_clouds(batch), solved)
+
+    def final(model, batch, u4, solved):
+        return last(model, batch, u4, model.post_solve(solved))
+
+    return harness.Split((first, *[step] * (num_iter - 1), final),
+                         lambda model, state: model.solve(state), lines, update)
+
+
+def train_split(cfg: RPMTrainConfig) -> harness.Split:
+    """``train_step`` as a ``harness.Split``: cfg.num_train_reg_iter
+    pieces, ``rpm_cal_loss`` on the uniforms ``u4``, the scheduled update."""
+    def loss(model, batch, u4, out):
+        transforms, endpoints = out
+        losses, _ = L.rpm_cal_loss(transforms, endpoints["perm_matrices"], batch, cfg.loss, u4)
+        return L.rpm_total_loss(losses), {k: v.detach() for k, v in losses.items()}
+
+    def update(grads, opt_state, params, loss):
+        return harness.scheduled_update(lr_schedule(cfg), grads, opt_state, params, loss,
+                                        cfg.loss.mesh)
+
+    return _split(cfg.num_train_reg_iter, loss,
+                  lambda B: (B * L.dp_scale(cfg.loss), 4, LN.ROUNDS * cfg.loss.n_lines), update)
+
+
 def train_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch,
                cfg: RPMTrainConfig, u4=None, generator=None):
     """One training step: the forward at cfg.num_train_reg_iter,
@@ -134,24 +171,13 @@ def train_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch,
     model. Returns (opt_state, metrics): the losses, ``loss`` and
     ``nonfinite_steps``. Under ``cfg.loss.mesh`` the batch is this rank's
     dp rows, ``u4`` the global batch's, and the update averages over dp."""
-    params = list(model.parameters())
-    transforms, endpoints = forward(model, batch, cfg.num_train_reg_iter)
-    losses, _ = L.rpm_cal_loss(transforms, endpoints["perm_matrices"], batch, cfg.loss, u4,
-                               generator)
-    loss = L.rpm_total_loss(losses)
-    grads = debug.grad(loss, params, allow_unused=True)
-    loss = loss.detach()
-    opt_state, nonfinite = harness.scheduled_update(lr_schedule(cfg), grads, opt_state, params,
-                                                    loss, cfg.loss.mesh)
-    return opt_state, dict({k: v.detach() for k, v in losses.items()}, loss=loss,
-                           nonfinite_steps=nonfinite)
+    split = train_split(cfg)
+    if u4 is None:
+        u4 = harness.draw(split, batch, generator)
+    return harness.run_split(split, model, batch, u4, opt_state)
 
 
-def eval_step(model: RPMNetEarlyFusion, batch, cfg: RPMTrainConfig):
-    """The ground-truth monitors of the last of cfg.num_eval_reg_iter
-    iterations: ``loss`` = mean |gt - pred| of the moved source, its chamfer
-    distance to the target and the Euler errors. No lines."""
-    transforms, _ = forward(model, batch, cfg.num_eval_reg_iter)
+def _eval(batch, transforms, cfg: RPMTrainConfig):
     src = batch["points_src_sample"][..., :3]
     pred_src = se3.rt_transform(transforms[-1], src)
     gt_src = se3.rt_transform(_gt_column(batch), src)
@@ -162,22 +188,40 @@ def eval_step(model: RPMNetEarlyFusion, batch, cfg: RPMTrainConfig):
                 loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse)
 
 
+def eval_split(cfg: RPMTrainConfig) -> harness.Split:
+    """``eval_step`` as a ``harness.Split``: no lines."""
+    return _split(cfg.num_eval_reg_iter, lambda model, batch, u4, out: _eval(batch, out[0], cfg))
+
+
+def eval_step(model: RPMNetEarlyFusion, batch, cfg: RPMTrainConfig):
+    """The ground-truth monitors of the last of cfg.num_eval_reg_iter
+    iterations: ``loss`` = mean |gt - pred| of the moved source, its chamfer
+    distance to the target and the Euler errors. No lines."""
+    transforms, _ = forward(model, batch, cfg.num_eval_reg_iter)
+    return _eval(batch, transforms, cfg)
+
+
+def pretrain_split(cfg: RPMTrainConfig) -> harness.Split:
+    """``pretrain_step`` as a ``harness.Split``: one iteration, no lines."""
+    def loss(model, batch, u4, out):
+        R = out[0][0][..., :3, :3]
+        t = out[0][0][..., :3, 3]
+        eye = torch.eye(3, dtype=R.dtype, device=R.device)
+        return ((R - eye) ** 2).mean() + (t**2).mean(), {}
+
+    def update(grads, opt_state, params, loss):
+        return harness.scheduled_update(lambda _: cfg.pretrain_lr, grads, opt_state, params,
+                                        loss, cfg.loss.mesh)
+
+    return _split(1, loss, None, update)
+
+
 def pretrain_step(model: RPMNetEarlyFusion, opt_state: ScheduledAdamState, batch,
                   cfg: RPMTrainConfig):
     """One identity-pretraining step: 1 iteration, loss = mse(R, I) +
     mse(t, 0), the guarded Adam step at cfg.pretrain_lr (the schedule's
     count advances too). No lines. Returns (opt_state, metrics)."""
-    params = list(model.parameters())
-    transforms, _ = forward(model, batch, 1)
-    R = transforms[0][..., :3, :3]
-    t = transforms[0][..., :3, 3]
-    eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    loss = ((R - eye) ** 2).mean() + (t**2).mean()
-    grads = debug.grad(loss, params, allow_unused=True)
-    loss = loss.detach()
-    opt_state, nonfinite = harness.scheduled_update(lambda _: cfg.pretrain_lr, grads, opt_state,
-                                                    params, loss, cfg.loss.mesh)
-    return opt_state, dict(loss=loss, nonfinite_steps=nonfinite)
+    return harness.run_split(pretrain_split(cfg), model, batch, None, opt_state)
 
 
 def artifact_fn(model: RPMNetEarlyFusion, batch, cfg: RPMTrainConfig):
@@ -225,7 +269,8 @@ def train(cfg: RPMTrainConfig, train_loader, test_loader=None, init_from=None, l
             resume=False, exp_dir=os.path.join(cfg.fit.exp_dir, "pretrain"))
         pre_trainer = harness.Trainer(
             lambda m, o, b, g, mesh=None: pretrain_step(m, o, b, harness.with_mesh(cfg, mesh)),
-            None, pre_fit, score_key="loss", device=dev, mesh=mesh)
+            None, pre_fit, score_key="loss", device=dev, mesh=mesh,
+            train_split=pretrain_split(cfg))
         seen = [0]
 
         def pre_log(msg):
@@ -242,7 +287,7 @@ def train(cfg: RPMTrainConfig, train_loader, test_loader=None, init_from=None, l
         lambda m, b, g, mesh=None: eval_step(m, b, harness.with_mesh(cfg, mesh)), cfg.fit,
         score_key="loss",
         score_mode="min", artifact_fn=lambda m, b: artifact_fn(m, b, cfg), device=dev,
-        mesh=mesh)
+        mesh=mesh, train_split=train_split(cfg), eval_split=eval_split(cfg))
     return trainer.fit(model, opt_state, train_loader, test_loader, log=log)
 
 

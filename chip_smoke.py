@@ -20,7 +20,8 @@ Drives the port's paths on the card:
   pairs of a 1,024-point noisy Fibonacci sphere from seed 0, 1,024 FPS + 3-NN
   neighbourhoods per cloud, 15,000 lines per sample;
 - the batched classical step and the demo at ``bench.py``'s widths, 4
-  pairs;
+  pairs; the classical runner's CUDA graphs at both widths against its
+  eager loop;
 - the data layer, FMR and DCP's CLI on a dataset written from files: six
   synthetic base clouds of 4,096 points from seed 0 (three bare noisy
   Fibonacci ellipsoids, three triangulated latitude-longitude ellipsoids),
@@ -257,7 +258,37 @@ Phases:
    epoch at lr 0: one metrics log and a checkpoint, from rank 0; its test
    losses within 1e-5 of the CLI in one process (the test batches of 1 go
    whole to every rank) and its train losses within 3e-3 (the network at
-   B = 2 moves knife-edge lines).
+   B = 2 moves knife-edge lines);
+21. (run after phase 11) the classical runner's CUDA graph
+   (``classical_graph_phase``, ``train/graphs.py``): 250 epochs of
+   ``_loop`` at ``bench.py``'s widths, single and then the 4 pairs of
+   phase 11, twice eagerly and once through the graph (its first epoch
+   eager, then a replay an epoch) from the same seed; where the two eager
+   runs are equal bit for bit, every epoch's loss, chamfer and valid flag,
+   the twists, both moments, the count and the moved source of the graph's
+   run equal theirs bit for bit (else the nondeterministic op is named and
+   the bar is 1e-5 relative, ``held_to_eager``); launches exact by kind in
+   every run, the graph counting 1 stage-1 and 1 resampler launch a
+   replay; a 20-epoch profile of the graph's epochs that fails on a host
+   copy or wait; it/s (pair-it/s) and peak memory of both, and the rate of
+   250 more epochs of replays alone. The demo (phase
+   12) and every ``run`` and ``run_batch`` on the card go through the
+   graphs too, and its planted-motion checks stand;
+22. (run after phase 16) ``Trainer.fit``'s scanned epoch
+   (``scanned_phase``) for DCP at its CLI's defaults, FMR at
+   ``FMRConfig``'s width and RPM-Net at ``RPMNetConfig``'s (after its one
+   pretraining epoch) on phase 14's files: the CLI for 2 epochs twice
+   streaming (``ARRL_NO_DEVICE_CACHE=1``) and once from the
+   ``DeviceCache`` through the graphs (the network, loss and update
+   captured in pieces around the SVD solves, which stay eager), held to
+   the streaming runs by the same rule (every epoch's train and test
+   metrics, the parameters and the Adam state), the same launches, the
+   train and the test metrics each fetched from the card once an epoch;
+   the train step's ms through the graphs and eagerly in turns, one graphed
+   step's launches (device kernels, host launches, graphs, waits) and the
+   kernels each captured piece replays. Phases 15 to 18 train from the
+   ``DeviceCache`` and so through the same graphs (phase 17's launch checks
+   by kind of step count each scanned step).
 
 Every traced window opens with ``PRIME`` spin kernels: once the card has
 idled, the tracer drops the first device records of each window, whatever
@@ -1384,13 +1415,10 @@ def dcp_path(torch, mods, cfg, model, batches):
     losses = torch.stack([r[0] for r in results]).cpu().numpy()
     # the cross-covariances the SVD head took, read on one more forward per
     # batch outside the timed and counted iterations
-    seen = []
-    hook = model.head.register_forward_hook(
-        lambda mod, args, out: seen.append(torch.linalg.svdvals(mod.correlation(*args)[0])))
     with torch.no_grad():
-        for batch in batches:
-            TD.forward(model, batch)
-    hook.remove()
+        seen = [torch.linalg.svdvals(model.pre_solve(batch["points_src_sample"],
+                                                     batch["points_tar_sample"])[0])
+                for batch in batches]
     sv = torch.stack(seen).cpu().numpy()  # (batches, B, 3), descending
     check(bool(torch.stack([r[1] for r in results]).all()), "a parameter's gradient is not finite")
     check(np.isfinite(losses).all() and (losses > 0).all(), f"losses {losses}")
@@ -1628,6 +1656,325 @@ def classical_batch_phase(torch, classical, IK, RS, PB, LN, single_its):
     check(lerr <= 1e-5, f"batched loss vs single: {lerr}")
     check(perr <= 1e-5, f"batched twists vs single: {perr}")
     return launches
+
+
+GRAPH_EPOCHS, GRAPH_PROFILED = 250, 20  # the graph phases' epochs per run, and profiled
+GRAPH_REL = 1e-5  # graph against eager where two eager runs differ (the resume bar)
+
+
+def _named(torch, prefix, tree):
+    """{prefix i: leaf i on the host} over a pytree's leaves."""
+    from torch.utils import _pytree
+
+    return {f"{prefix} {i}": x.detach().cpu().numpy()
+            for i, x in enumerate(_pytree.tree_leaves(tree))}
+
+
+def spread(a, b):
+    """{name: relative difference} of the arrays that differ between two
+    dicts of arrays, each difference over the larger magnitude of b's
+    array."""
+    out = {}
+    for k in b:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        if not np.array_equal(x, y):
+            out[k] = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+    return out
+
+
+def held_to_eager(what, eager, again, graph, nondeterministic):
+    """The bit-for-bit rule: where two eager runs agree bit for bit, the
+    graph's run must equal them bit for bit; where they do not, the
+    nondeterministic op is named and the graph is held to GRAPH_REL. Each
+    argument is a dict of named arrays. Returns (the largest relative
+    difference of the graph's run, of the second eager run)."""
+    gaps, noises = spread(graph, eager), spread(again, eager)
+    gap, noise = max(gaps.values(), default=0.0), max(noises.values(), default=0.0)
+    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:4]
+    if noise == 0.0:
+        print(f"{what}: two eager runs equal bit for bit; the graph's run "
+              f"{'equal bit for bit' if gap == 0.0 else f'differs by {gap:.3g}: {worst}'}",
+              flush=True)
+        check(gap == 0.0, f"{what}: the graph differs from the eager runs where two eager runs "
+              f"are equal: {worst}")
+    else:
+        print(f"{what}: two eager runs differ by {noise:.3g} relative ({nondeterministic}); "
+              f"the graph's run by {gap:.3g} (bar {GRAPH_REL:g}): {worst}", flush=True)
+        check(gap <= GRAPH_REL, f"{what}: the graph differs by {gap:.3g} > {GRAPH_REL:g}: "
+              f"{worst}")
+    return gap, noise
+
+
+def classical_graph_phase(torch, classical, IK, RS, PB, LN, batched):
+    """The classical runner's CUDA graph (module docstring, phase 21):
+    GRAPH_EPOCHS epochs of ``_loop`` at ``bench.py``'s widths, single or
+    B1 pairs (the classical-batch phase's), twice eagerly and once through
+    the graph from the same seed; the graph's history and final carry held
+    to the eager runs' (``held_to_eager``), launches exact by kind in each
+    run, a profile of the graph's epochs that fails on a host copy or wait,
+    the rates and peak memory of both. Returns the graph run's launches and
+    numbers."""
+    cfg = classical.ClassicalConfig(n_epochs=GRAPH_EPOCHS, n_lines=N_LINES,
+                                    num_sample=N_FACES, compute_chamfer=False)
+    if batched:
+        src, tar = synthetic_pairs(B1, N_CLOUD)
+        data = classical.prepare_pairs(src, tar, cfg, device=DEV)
+        step = classical.make_batch_step(cfg, data)
+        per, kinds = B1, {"resample_batched": 1, "stage1_pair_pts": 1}
+    else:
+        src, tar = synthetic_pair()
+        data = classical.prepare_pair(src, tar, cfg, device=DEV)
+        step = classical.make_step(cfg, data)
+        per, kinds = 1, {"resample_sample_and_hit": 1, "stage1_pair_pts": 1}
+    what = f"classical {'batch (B=' + str(B1) + ')' if batched else 'single'} graph"
+
+    def init(gen):
+        if batched:
+            return torch.stack([classical.init_twist(gen) for _ in range(B1)])
+        return classical.init_twist(gen)
+
+    runs = {}
+    for mode in ("eager", "eager again", "graph"):
+        gen = gen_on(torch, cfg.seed)
+        params = init(gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts(IK, RS, PB, reset=True)
+        t0 = time.perf_counter()
+        carry, hist = classical._loop(cfg, step, params, data["src"], gen, None,
+                                      mode=mode.split()[0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts(IK, RS, PB)
+        check_counts(launches, kinds, GRAPH_EPOCHS, f"{what}, {mode}")
+        check(np.isfinite(hist["loss"]).all() and hist["valid"].all(),
+              f"{what}, {mode}: a loss is not finite or an epoch had no usable line")
+        runs[mode] = dict(state={**hist, **_named(torch, "carry", carry)},
+                          its=per * GRAPH_EPOCHS / dt, launches=launches,
+                          peak=torch.cuda.max_memory_allocated() / 2**20,
+                          loss=hist["loss"][-1])
+    gap, noise = held_to_eager(f"{what}: {GRAPH_EPOCHS} epochs' losses, chamfers, valid flags, "
+                               "twists, both moments, count and moved source",
+                               runs["eager"]["state"], runs["eager again"]["state"],
+                               runs["graph"]["state"],
+                               "the slots' index_add_ of ops/metric.py is atomic on the card")
+    unit = "pair-it/s" if batched else "it/s"
+    g, e = runs["graph"], runs["eager"]
+    print(f"{what}: {GRAPH_EPOCHS} epochs through the graph {g['its']:.2f} {unit} against eager "
+          f"{e['its']:.2f} and {runs['eager again']['its']:.2f} (the first epoch eager in "
+          f"each, the capture included: {g['its'] / e['its']:.2f} times); peak device memory "
+          f"{g['peak']:.1f} MiB against {e['peak']:.1f}; final loss {g['loss']}; launches "
+          f"{g['launches']}", flush=True)
+
+    # the profile of the graph's epochs: one replay each, no copy or wait
+    gen = gen_on(torch, cfg.seed)
+    params = init(gen)
+    carry = (params, classical.init_adam(params), data["src"])
+    u4_shape = params.shape[:-1] + (4, LN.ROUNDS * cfg.n_lines)
+    state = dict(mode="graph", graph=None)
+    carry, _ = classical._static_block(step, carry, u4_shape, gen, 1, state)
+    ms = 1e3 * per / g["its"]
+    prof = profile_phase(torch, lambda: classical._static_block(step, carry, u4_shape, gen, 1,
+                                                                state),
+                         GRAPH_PROFILED, "epoch", ms)
+    graph = state["graph"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    classical._static_block(step, carry, u4_shape, gen, GRAPH_EPOCHS, state)
+    torch.cuda.synchronize()
+    steady = per * GRAPH_EPOCHS / (time.perf_counter() - t0)
+    print(f"{what}: {GRAPH_EPOCHS} more epochs of replays alone {steady:.2f} {unit} "
+          f"({steady / e['its']:.2f} times eager's run); per replay the graph counts "
+          f"{graph.counts}", flush=True)
+    check(graph.counts == {("stage1", IK.instantiation(*STAGE1["stage1_pair_pts"])): 1,
+                           ("resample", "batched" if batched else "single"): 1},
+          f"{what}: the graph's launches per replay {graph.counts}")
+    state.clear()
+    return g["launches"], dict(graph_its=g["its"], graph_steady_its=steady, eager_its=e["its"],
+                               eager_again_its=runs["eager again"]["its"],
+                               graph_peak_mib=g["peak"], eager_peak_mib=e["peak"],
+                               gap=gap, eager_spread=noise, profile=prof)
+
+
+SCAN_EPOCHS = 2  # the scanned-epoch phase's epochs per run
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def launch_profile(torch, fn, n=1):
+    """Per call of ``fn`` over ``n`` calls under torch.profiler: (the device
+    kernels, the kernels the host launched itself, the graphs it launched,
+    its waits for the device); None for the device kernels when the tracer
+    recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime(torch)
+        for _ in range(n):
+            with record_function("chip_smoke.call"):
+                fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "chip_smoke.call" and e.device_type != DeviceType.CUDA]
+    host = [e for e in events if e.device_type != DeviceType.CUDA
+            and any(a <= e.time_range.start < b for a, b in spans)]
+    kernels = sum(e.device_type == DeviceType.CUDA and PRIME_KERNEL not in e.name
+                  and e.name != "chip_smoke.call"
+                  and not e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return ((kernels / n) if kernels else None,
+            sum(e.name in LAUNCH_CALLS for e in host) / n,
+            sum(e.name.startswith("cudaGraphLaunch") for e in host) / n,
+            sum(e.name in SYNC_CALLS for e in host) / n)
+
+
+def _n(x):
+    return "not measured" if x is None else f"{x:.1f}"
+
+
+def scanned_phase(torch, mods, data, tmp, name):
+    """``Trainer.fit``'s scanned epoch for DCP, FMR or RPM-Net (module
+    docstring, phase 22): the trainer's CLI on the data phase's files at
+    its phase's width for SCAN_EPOCHS epochs (RPM-Net's after its one
+    pretraining epoch), twice streaming (``ARRL_NO_DEVICE_CACHE=1``)
+    and once from the ``DeviceCache`` through the graphs, from the same
+    seed: every epoch's train and test metrics and the final parameters and
+    Adam state held to the streaming runs' (``held_to_eager``), the same
+    launches, the train and test metrics each fetched once an epoch. Then,
+    on a throwaway model, the train step's ms through the graphs against
+    eager in turns, the launches of one graphed step (on the device, from
+    the host, graphs, waits) and the kernels each captured piece replays.
+    Returns the scanned run's launches and numbers."""
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.train import dcp as TD
+    from a_robust_registration_loss_tpu_torch.train import fmr as TF
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    from a_robust_registration_loss_tpu_torch.train import rpmnet as TR
+
+    G, M, IK, RS, PB = mods[:5]
+    mod = {"dcp": TD, "fmr": TF, "rpm": TR}[name]
+    args = ["--data_path", data, "--layout", "views", "--train_count", str(TRAIN5),
+            "--batch_size", str(B5), "--seed", "0", "--device", DEV, "--epochs",
+            str(SCAN_EPOCHS)] + {
+                "dcp": ["--n_lines", str(L5)] + DCP_CLI, "fmr": ["--n_lines", str(L5)] + FMR_CLI,
+                "rpm": ["--n_lines", str(L_RPM), "--pretrain_epochs", "1"] + RPM_CLI}[name]
+    steps, n_test = TRAIN5 // B5, 6 * VIEWS5 - TRAIN5
+    fetch, train, fetches, seen = H._fetch, mod.train, [], {}
+    H._fetch = lambda rows: fetches.append(tuple(rows.shape)) or fetch(rows)
+
+    def spy(cfg, *a, **k):  # the CLI's configuration
+        seen["cfg"] = cfg
+        return train(cfg, *a, **k)
+
+    mod.train = spy
+    env = os.environ.pop("ARRL_NO_DEVICE_CACHE", None)
+    runs = {}
+    try:
+        for label in ("streaming", "streaming again", "scanned"):
+            if label.startswith("streaming"):
+                os.environ["ARRL_NO_DEVICE_CACHE"] = "1"
+            else:
+                os.environ.pop("ARRL_NO_DEVICE_CACHE", None)
+            exp = os.path.join(tmp, f"scan_{name}_{label.replace(' ', '_')}")
+            fetches.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts(IK, RS, PB, reset=True)
+            t0 = time.perf_counter()
+            model, state, hist = mod.main(args + ["--exp_dir", exp])
+            torch.cuda.synchronize()
+            runs[label] = dict(
+                hist=hist, secs=_epoch_seconds(exp), wall=time.perf_counter() - t0,
+                launches=counts(IK, RS, PB), fetches=list(fetches),
+                peak=torch.cuda.max_memory_allocated() / 2**20,
+                state={**{f"epoch {h['epoch']} {k}": v for h in hist for k, v in h.items()},
+                       **_named(torch, "parameter", list(model.parameters())),
+                       **_named(torch, "adam", state)})
+    finally:
+        H._fetch, mod.train = fetch, train
+        os.environ.pop("ARRL_NO_DEVICE_CACHE", None)
+        if env is not None:
+            os.environ["ARRL_NO_DEVICE_CACHE"] = env
+    st, sc = runs["streaming"], runs["scanned"]
+    what = f"{name.upper()} scanned epoch"
+    check([sorted(h) for h in sc["hist"]] == [sorted(h) for h in st["hist"]],
+          f"{what}: the metrics' names differ from the streaming run's")
+    check(sc["launches"] == st["launches"],
+          f"{what}: launches {sc['launches']} against streaming {st['launches']}")
+    main = sc["fetches"][-2 * SCAN_EPOCHS:]  # after RPM-Net's pretraining epoch's
+    check(st["fetches"] == [] and len(sc["fetches"]) == 2 * SCAN_EPOCHS + (name == "rpm")
+          and main[::2] == [(steps, main[0][1])] * SCAN_EPOCHS
+          and all(f[0] == n_test for f in main[1::2])
+          and all(f[0] == steps for f in sc["fetches"][:-2 * SCAN_EPOCHS]),
+          f"{what}: the stacked metrics fetched {sc['fetches']} (want one train and one test "
+          f"fetch an epoch)")
+    gap, noise = held_to_eager(
+        f"{what}: {SCAN_EPOCHS} epochs' train and test metrics, parameters, Adam state",
+        st["state"], runs["streaming again"]["state"], sc["state"],
+        "cuBLAS or the atomics of index_add_")
+
+    # the train step alone, on a throwaway model: graphs against eager, in turns
+    cfg = seen["cfg"]
+    loader, _ = DS.generate_datasets(DS.DatasetConfig(
+        data_path=data, layout="views", train_count=TRAIN5, train_batch=B5, seed=0,
+        dcp=name == "dcp", fmr=name == "fmr"), device=DEV)
+    cache = DS.DeviceCache(loader, DEV)
+    model = mod.init_model(cfg, 1, DEV)
+    box = {"opt": (H.scheduled_adam_init if name == "rpm" else H.adam_init)(model.parameters())}
+    gen = gen_on(torch, 0)
+    _, full, _ = cache.next_epoch()
+    scan = H._Scan(mod.train_split(cfg), model, cache, B5)
+
+    def eager_epoch():
+        for row in full:
+            box["opt"], _ = mod.train_step(model, box["opt"], cache.gather(row), cfg,
+                                           generator=gen)
+
+    def scanned_epoch():
+        for row in full:
+            box["opt"], _ = scan(row, gen, box["opt"])
+
+    ms = {"eager": [], "graph": []}
+    for label, fn in (("graph", scanned_epoch), ("eager", eager_epoch),
+                      ("eager", eager_epoch), ("graph", scanned_epoch),
+                      ("graph", scanned_epoch), ("eager", eager_epoch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[label].append(1e3 * (time.perf_counter() - t0) / len(full))
+    ms = {k: v[1:] if k == "graph" else v for k, v in ms.items()}  # the first builds
+    one = lambda: scan(full[0], gen, box["opt"])
+    g_kernels, g_host, g_graphs, g_waits = launch_profile(torch, one, 3)
+    step = scan.step
+    pieces = {"gather": step.gather.graph, "update": step.update.graph}
+    for i, seg in enumerate(step.pieces):
+        pieces.update({f"piece {i} forward": seg.fwd, f"piece {i} backward": seg.bwd})
+    per_piece = {k: launch_profile(torch, g.replay)[0] for k, g in pieces.items()}
+    e_kernels, e_host, _, e_waits = launch_profile(
+        torch, lambda: mod.train_step(model, box["opt"], cache.gather(full[0]), cfg,
+                                      generator=gen), 3)
+    print(f"{what}: {SCAN_EPOCHS} epochs of {steps} steps and {n_test} test batches, "
+          f"time/epoch_seconds {sc['secs']} against streaming {st['secs']} and "
+          f"{runs['streaming again']['secs']} (wall {sc['wall']:.2f} s against "
+          f"{st['wall']:.2f} s, CLI and data included); peak {sc['peak']:.1f} MiB against "
+          f"{st['peak']:.1f}; fetches {sc['fetches']}; launches {sc['launches']}", flush=True)
+    print(f"{what}: train step {[round(x, 4) for x in ms['graph']]} ms through the graphs "
+          f"against eager {[round(x, 4) for x in ms['eager']]} (turns graph, eager, eager, "
+          f"graph, graph, eager; the first graph epoch, which captures, left out); a graphed "
+          f"step: {_n(g_kernels)} kernels on the device, {g_host:.1f} launched by the host, "
+          f"{g_graphs:.1f} graphs, {g_waits:.1f} waits; eager: {_n(e_kernels)} kernels, "
+          f"{e_host:.1f} launched by the host, {e_waits:.1f} waits; kernels per captured piece "
+          f"(each replaced by one graph launch) "
+          f"{ {k: _n(v) for k, v in per_piece.items()} }", flush=True)
+    return sc["launches"], dict(
+        secs=sc["secs"], stream_secs=st["secs"], stream_again_secs=runs["streaming again"]["secs"],
+        graph_ms=ms["graph"], eager_ms=ms["eager"], graph_step=(g_kernels, g_host, g_graphs,
+                                                                 g_waits),
+        eager_step=(e_kernels, e_host, e_waits), per_piece=per_piece, gap=gap,
+        eager_spread=noise, peak=sc["peak"], stream_peak=st["peak"])
 
 
 def demo_phase(torch, demo, IK, RS, PB):
@@ -2298,40 +2645,52 @@ RPM_RADIUS, RPM_NS = 0.3, 64  # RPMNetConfig's ball
 
 
 class _StepCounts:
-    """Wraps ``train.rpmnet``'s step functions while entered: each call's
-    launches must equal ``RPM_STEPS`` of its kind (0 of every other kernel,
-    the gather's backward and stage 1's other instantiations among them);
-    counts the calls and adds up the launches by kind."""
+    """Wraps ``train.rpmnet``'s step functions, and the scanned epoch's
+    steps (``harness._Scan``, each replay of a step's graphs), while
+    entered: each call's launches must equal ``RPM_STEPS`` of its kind (0
+    of every other kernel, the gather's backward and stage 1's other
+    instantiations among them); counts the calls and adds up the launches
+    by kind."""
 
     NAMES = {"train_step": "train", "eval_step": "eval", "pretrain_step": "pretrain",
              "artifact_fn": "artifact"}
 
     def __init__(self, TR, IK, RS, PB):
-        self.TR, self.mods = TR, (IK, RS, PB)
+        from a_robust_registration_loss_tpu_torch.train import harness as H
+
+        self.TR, self.H, self.mods = TR, H, (IK, RS, PB)
         self.calls = {k: 0 for k in self.NAMES.values()}
         self.totals = {k: {} for k in self.NAMES.values()}
 
-    def _wrap(self, fn, kind):
-        def call(*a, **k):
-            before = counts(*self.mods)
-            out = fn(*a, **k)
-            diff = {n: c - before[n] for n, c in counts(*self.mods).items()}
-            check_counts(diff, RPM_STEPS[kind], 1, f"an RPM-Net {kind} step")
-            self.calls[kind] += 1
-            for n, c in diff.items():
-                self.totals[kind][n] = self.totals[kind].get(n, 0) + c
-            return out
-        return call
+    def _count(self, kind, fn, *a, **k):
+        before = counts(*self.mods)
+        out = fn(*a, **k)
+        diff = {n: c - before[n] for n, c in counts(*self.mods).items()}
+        check_counts(diff, RPM_STEPS[kind], 1, f"an RPM-Net {kind} step")
+        self.calls[kind] += 1
+        for n, c in diff.items():
+            self.totals[kind][n] = self.totals[kind].get(n, 0) + c
+        return out
 
     def __enter__(self):
         self.real = {name: getattr(self.TR, name) for name in self.NAMES}
         for name, kind in self.NAMES.items():
-            setattr(self.TR, name, self._wrap(self.real[name], kind))
+            setattr(self.TR, name, lambda *a, fn=self.real[name], kind=kind, **k:
+                    self._count(kind, fn, *a, **k))
+        self.scan = self.H._Scan.__call__
+
+        def scanned(scan, *a, **k):  # the kind from the split: lines, an update
+            kind = ("eval" if scan.split.update is None
+                    else "train" if scan.split.lines is not None else "pretrain")
+            return self._count(kind, self.scan, scan, *a, **k)
+
+        self.H._Scan.__call__ = scanned
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.real.items():
             setattr(self.TR, name, fn)
+        self.H._Scan.__call__ = self.scan
 
 
 def knife_edge_rows(torch, xyz, radius):
@@ -3720,12 +4079,19 @@ def main():
     dcp_eval, dcp_grad = timed(seconds, "dcp", dcp_path, torch, mods3, cfg3, model3, batches3)
     classical_batch = timed(seconds, "classical_batch", classical_batch_phase, torch, classical, IK,
                             RS, PB, LN, single_its)
+    classical_graph, graph_numbers = timed(seconds, "classical_graph", classical_graph_phase,
+                                           torch, classical, IK, RS, PB, LN, False)
+    batch_graph, batch_graph_numbers = timed(seconds, "classical_batch_graph",
+                                             classical_graph_phase, torch, classical, IK, RS,
+                                             PB, LN, True)
     demo_launches = timed(seconds, "demo", demo_phase, torch, demo, IK, RS, PB)
     dcp_train = timed(seconds, "dcp_train", dcp_train_phase, torch, mods3, cfg3, batches3)
     with tmp_dir:
         fmr_train, fmr_eval = timed(seconds, "fmr", fmr_phase, torch, mods3, data5, tmp)
         dcp_cli, dcp_cli_eval = timed(seconds, "dcp_cli", dcp_cli_phase, torch, mods3, data5,
                                       tmp)
+        scanned = {name: timed(seconds, f"{name}_scanned", scanned_phase, torch, mods3, data5,
+                               tmp, name) for name in ("dcp", "fmr", "rpm")}
         rpm_paths, _ = timed(seconds, "rpm", rpm_phase, torch, mods3, data5, tmp, rate)
         bf16 = {name: timed(seconds, f"{name}_bf16", bf16_phase, torch, mods3, data5, tmp, name)
                 for name in ("dcp", "fmr", "rpm")}
@@ -3742,7 +4108,12 @@ def main():
              "demo": demo_launches, "dcp_train": dcp_train, "fmr_train": fmr_train,
              "fmr_eval_only": fmr_eval, "dcp_cli_train": dcp_cli,
              "dcp_cli_eval_only": dcp_cli_eval, **rpm_paths, **bf16_paths,
-             "sharded_train_steps": sharded}
+             "sharded_train_steps": sharded, "classical_graph": classical_graph,
+             "classical_batch_graph": batch_graph,
+             **{f"{name}_scanned": c for name, (c, _) in scanned.items()}}
+    print("CUDA graphs against eager on the card (NVIDIA card above): " + json.dumps(
+        {"classical": graph_numbers, "classical_batch": batch_graph_numbers,
+         **{name: numbers for name, (_, numbers) in scanned.items()}}), flush=True)
     for k in kernels:  # the gather on RPM-Net's own ball query, its first model caller
         if k["name"] in ("gather_fwd", "gather_bwd"):
             t = rpm_gather[k["name"][7:]]

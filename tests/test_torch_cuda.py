@@ -48,7 +48,11 @@ bf16 phases); and every kernel wrapper refusing a bf16 input rather than
 casting it; and two ranks sharing the card over gloo under (1, 2): each
 rank's stage-1 launches sweep its L/2 lines, the metric's values equal the
 one-process values on the card bit for bit and its gradient within 1e-5
-relative L2, and one classical step's loss and twists within 1e-6.
+relative L2, and one classical step's loss and twists within 1e-6; the
+classical step's CUDA graph (``train/graphs.py``) equal to the eager loop
+bit for bit over 10 epochs, its launch counters counting per replay, and
+three DCP train steps through the scanned epoch's graphs equal to three
+eager steps bit for bit.
 """
 
 import numpy as np
@@ -826,3 +830,100 @@ def test_sp2_step_on_one_card_over_gloo(cuda_device, tmp_path):
             assert float((got - want.cpu()).norm() / want.norm()) <= 1e-5
         np.testing.assert_allclose(out["loss"], loss, rtol=1e-6)
         np.testing.assert_allclose(out["new"].numpy(), new.cpu().numpy(), rtol=1e-6, atol=1e-7)
+
+
+def _classical_runs(device, n_epochs, modes):
+    """``_loop`` from one seed in each mode: (carry, history, launches) each."""
+    v1, v2 = _cloud(1200, 9), _cloud(1200, 10)
+    cfg = TC.ClassicalConfig(n_epochs=n_epochs, n_lines=2000, num_sample=512, log_every=4)
+    data = TC.prepare_pair(v1, v2, cfg, device=device)
+    out = {}
+    for mode in modes:
+        g = torch.Generator(device=device).manual_seed(cfg.seed)
+        params = TC.init_twist(g)
+        IK.launches.clear()
+        RS.launches.clear()
+        carry, hist = TC._loop(cfg, TC.make_step(cfg, data), params, data["src"], g, None,
+                               mode=mode)
+        torch.cuda.synchronize()
+        out[mode] = carry, hist, (dict(IK.launches), dict(RS.launches))
+    return out
+
+
+@pytest.mark.cuda
+def test_classical_graph_replay_equals_the_eager_step(cuda_device):
+    """Ten epochs through the classical step's CUDA graph equal the eager
+    loop's bit for bit: every epoch's metrics, the twist, both moments, the
+    count and the moved source."""
+    runs = _classical_runs(cuda_device, 10, ("eager", "graph"))
+    (ce, he, _), (cg, hg, _) = runs["eager"], runs["graph"]
+    for k in he:
+        assert np.array_equal(he[k], hg[k]), k
+    for a, b in zip(torch.utils._pytree.tree_leaves(ce), torch.utils._pytree.tree_leaves(cg)):
+        assert torch.equal(a, b)
+    assert int(cg[1].count) == 10
+
+
+@pytest.mark.cuda
+def test_graph_launch_counters_count_per_replay(cuda_device):
+    """A graph's run counts one stage-1 and one resampler launch an epoch,
+    as the eager loop does: the capture's count is taken back, each replay
+    adds it."""
+    from a_robust_registration_loss_tpu_torch.train import graphs
+
+    runs = _classical_runs(cuda_device, 7, ("eager", "graph"))
+    pts = IK.instantiation(2, False, False, True)
+    want = ({pts: 7}, {"single": 7})
+    assert runs["eager"][2] == want and runs["graph"][2] == want
+    x = torch.zeros(4, device=cuda_device)
+    IK.launches.clear()
+    RS.launches.clear()
+    g = graphs.Graph(lambda: LN.resample_lines(
+        torch.rand((4, LN.ROUNDS * 16), device=cuda_device), x[0] + 1.0, x[:3],
+        16, torch.randn(8, 3, device=cuda_device), torch.randn(8, 3, device=cuda_device)))
+    assert RS.launches.get("single", 0) == 0 and g.counts == {("resample", "single"): 1}
+    for _ in range(3):
+        g.replay()
+    assert RS.launches["single"] == 3
+
+
+@pytest.mark.cuda
+def test_dcp_graphed_train_step_equals_the_eager_one(cuda_device):
+    """Three DCP train steps through the scanned epoch's graphs (the
+    network to the SVD head's correlations, the SVDs eagerly, the loss, the
+    update) equal three eager steps from the same weights and uniforms: the
+    metrics, the parameters and the Adam state, bit for bit."""
+    from a_robust_registration_loss_tpu_torch.data import dataset as DS
+    from a_robust_registration_loss_tpu_torch.train import harness as H
+
+    cfg = TD.DCPTrainConfig(loss=LS.LossConfig(n_lines=2000), model=D.DCPConfig(
+        emb_nn="pointnet", emb_dims=64, ff_dims=128, n_heads=2))
+    batches = [_dcp_batch(2, 256, 128, seed) for seed in (0, 1, 2)]
+
+    class Cache:  # the DeviceCache interface the scan reads: a device and gather
+        device = cuda_device
+        data = {k: torch.cat([b[k] for b in batches]).to(cuda_device) for k in batches[0]}
+        gather = DS.DeviceCache.gather
+
+    cache = Cache()
+    rows = torch.arange(6, device=cuda_device).reshape(3, 2)
+    out = {}
+    for graphed in (False, True):
+        model = TD.init_model(cfg, 0, cuda_device)
+        opt = H.adam_init(model.parameters())
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        scan = H._Scan(TD.train_split(cfg), model, cache, 2)
+        metrics = []
+        for row in rows:
+            if graphed:
+                opt, m = scan(row, gen, opt)
+            else:
+                opt, m = TD.train_step(model, opt, cache.gather(row), cfg, generator=gen)
+            metrics.append({k: v.clone() for k, v in m.items()})
+        out[graphed] = metrics, [p.detach().clone() for p in model.parameters()], opt, scan
+    (me, pe, oe, _), (mg, pg, og, scan) = out[False], out[True]
+    assert type(scan.step).__name__ == "_GraphStep" and scan.step.pieces[0].replays == 2
+    for a, b in zip(me, mg):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), a
+    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+    assert all(torch.equal(a, b) for a, b in zip(oe, og)) and int(og.count) == 3
