@@ -12,4 +12,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; an
 entry point that finds no GPU raises (see ``_device.py``).
 """
 
+__version__ = "0.1.0"  # the JAX package's
+
 from a_robust_registration_loss_tpu_torch import _device  # noqa: F401  (fp32 policy)
+from a_robust_registration_loss_tpu_torch import se3  # noqa: F401

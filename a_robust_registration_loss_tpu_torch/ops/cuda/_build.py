@@ -37,7 +37,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "arrl_stage1": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                     _P, _P, _P, _P, _P, _P],
-    "arrl_resample": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "arrl_resample": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     "arrl_gather_fwd": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
     "arrl_gather_sort": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "arrl_gather_segsum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

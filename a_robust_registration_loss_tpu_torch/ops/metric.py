@@ -40,6 +40,8 @@ import torch
 from a_robust_registration_loss_tpu_torch._device import sqrt_rn
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
 
+NNEI_DEFAULT = IK.NNEI  # points a neighbourhood, the reference's only size
+
 
 class Intersections(NamedTuple):
     """Fixed-shape per-line intersection record (stage-1 output).

@@ -52,7 +52,10 @@ relative L2, and one classical step's loss and twists within 1e-6; the
 classical step's CUDA graph (``train/graphs.py``) equal to the eager loop
 bit for bit over 10 epochs, its launch counters counting per replay, and
 three DCP train steps through the scanned epoch's graphs equal to three
-eager steps bit for bit.
+eager steps bit for bit; the resampler's skip flags (the round budget's
+second launch) equal to the plain version bit for bit, and the budgeted
+``resample_lines`` equal to its plain version, eagerly and from a CUDA
+graph replayed on either branch's inputs.
 """
 
 import numpy as np
@@ -158,6 +161,105 @@ def test_resample_kernel_adversarial(cuda_device, case):
     for b in range(u4.shape[0] if key == "batched" else 0):
         one = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
         assert torch.equal(cand[b], one[0]) and torch.equal(ok[b], one[1])
+
+
+@pytest.mark.cuda
+def test_resample_kernel_skip_matches_plain(cuda_device):
+    """The round budget's second launch: a sample whose skip flag is set
+    draws nothing, its ok is all False and equal to the plain version's bit
+    for bit, and every other sample's cand and ok equal it too; a launch
+    with skip counts as a launch, and one with no flag set equals a launch
+    without skip."""
+    B = 3
+    v1 = torch.stack([torch.tensor(_cloud(700, 40 + b)) for b in range(B)]).to(cuda_device)
+    v2 = torch.stack([torch.tensor(_cloud(700, 50 + b)) for b in range(B)]).to(cuda_device) + 0.05
+    fv = RS.prep_faces(G.bbox_face_vertices(v1), G.bbox_face_vertices(v2))
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    u4 = torch.rand((B, 4, 30_001), generator=g, device=cuda_device)
+    r, c = torch.tensor([0.3, 2.2, 1.8], device=cuda_device), v2.mean(1)
+    cases = [(u4, r, c, fv, torch.tensor(flags, device=cuda_device), "batched")
+             for flags in ([True, False, True], [False] * B, [True] * B)]
+    cases += [(u4[1], r[1], c[1], fv[1], torch.tensor(flag, device=cuda_device), "single")
+              for flag in (True, False)]
+    for u, rr, cc, f, skip, key in cases:
+        before = RS.launches[key]
+        cand, ok = RS.sample_and_hit(u, rr, cc, f, skip=skip)
+        assert RS.launches[key] == before + 1
+        cand_r, ok_r = RS.sample_and_hit_reference(u, rr, cc, f, skip)
+        assert torch.equal(ok, ok_r) and not ok[skip].any()
+        assert torch.equal(cand[~skip], cand_r[~skip])
+        if not skip.any():
+            assert torch.equal(ok, RS.sample_and_hit(u, rr, cc, f)[1])
+    with pytest.raises(ValueError):
+        RS.sample_and_hit(u4, r, c, fv, skip=torch.zeros(B, dtype=torch.uint8, device=cuda_device))
+
+
+def _budget_inputs(device, batched):
+    """The round budget's inputs (u_fast, u_full, r, center, v1, v2, n) on
+    two radii: the tight one, where the fast stream suffices, and the wide
+    one, where it falls short; batched, one sample at each."""
+    n, g = 2000, torch.Generator(device=device).manual_seed(7)
+    v1 = torch.tensor(_cloud(900, 60), device=device)
+    v2 = torch.tensor(_cloud(900, 61), device=device) + 0.05
+    radii = torch.tensor([0.2, 4.0], device=device)
+    shape = (2,) if batched else ()
+    out = {}
+    for name, r in (("fast", radii), ("fallback", radii.flip(0))):
+        u_fast = torch.rand(shape + (4, 3 * n), generator=g, device=device)
+        u_full = torch.rand(shape + (4, 10 * n), generator=g, device=device)
+        if batched:
+            out[name] = (u_fast, u_full, r, torch.stack([v2.mean(0)] * 2), torch.stack([v1] * 2),
+                         torch.stack([v2] * 2), n)
+        else:
+            out[name] = (u_fast, u_full, r[0], v2.mean(0), v1, v2, n)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_resample_budget_graph_replays_both_branches(cuda_device, batched):
+    """``resample_lines`` under the round budget (rounds 10, fast_rounds 3):
+    eagerly, each sample's branch is the plain version's and the lines
+    equal the plain version's (on the card) bit for bit; captured in a CUDA
+    graph on one branch's inputs, a replay on the other branch's inputs
+    copied into its static buffers equals the eager call bit for bit, with
+    2 resampler launches a replay. Batched, the two samples swap branches
+    between the two inputs."""
+    from a_robust_registration_loss_tpu_torch.train import graphs
+
+    inputs = _budget_inputs(cuda_device, batched)
+
+    def budget(u_fast, u_full, r, c, v1, v2, n):
+        return LN.resample_lines(u_fast, r, c, n, v1, v2, rounds=10, fast_rounds=3,
+                                 u4_full=u_full)
+
+    eager = {}
+    for name, args in inputs.items():
+        eager[name] = budget(*args)
+        u_fast, u_full, r, c, v1, v2, n = args
+        fv = RS.prep_faces(G.bbox_face_vertices(v1 if batched else v1[None]),
+                           G.bbox_face_vertices(v2 if batched else v2[None]))
+        fv = fv if batched else fv[0]
+        cand, ok = RS.sample_and_hit_reference(u_fast, r, c, fv)
+        enough = ok.sum(-1) >= n
+        first = enough.reshape(-1)[0].item()
+        assert first == (name == "fast")
+        assert not batched or enough.tolist() == [first, not first]
+        cand2, ok2 = RS.sample_and_hit_reference(u_full, r, c, fv, enough)
+        want = torch.where(enough[..., None, None], LN._fill_first_n_gather(cand, ok, n),
+                           LN._fill_first_n_gather(cand2, ok2, n))
+        assert torch.equal(eager[name], want)
+    key = "batched" if batched else "single"
+    for first in inputs:
+        static = [x.clone() if torch.is_tensor(x) else x for x in inputs[first]]
+        g = graphs.Graph(lambda: budget(*static), static[:-1])
+        assert g.counts == {("resample", key): 2}
+        for name in (first, *(x for x in inputs if x != first)):
+            for dst, src in zip(static[:-1], inputs[name][:-1]):
+                dst.copy_(src)
+            before = RS.launches[key]
+            assert torch.equal(g.replay(), eager[name])
+            assert RS.launches[key] == before + 2
 
 
 @pytest.mark.cuda
