@@ -45,6 +45,7 @@ from a_robust_registration_loss_tpu_torch.ops import metric as M
 from a_robust_registration_loss_tpu_torch.ops.adam import AdamState
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import graphs
+from a_robust_registration_loss_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,17 +188,19 @@ def run(src_vertices, tar_vertices, cfg: ClassicalConfig = ClassicalConfig(),
     (host values) fires once per block of cfg.log_every epochs, one block
     late so its fetch overlaps the next block's work. Returns (params, history
     dict of per-epoch metric arrays)."""
-    dev = _device.resolve(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    data = prepare_pair(src_vertices, tar_vertices, cfg, dev)
-    if init_params is None:
-        params = init_twist(gen)
-    else:
-        params = torch.as_tensor(np.asarray(init_params, np.float32),
-                                 device=dev).reshape(6)
-    carry, hist = _loop(cfg, make_step(cfg, data), params, data["src"], gen, callback)
-    return carry[0], hist
+    with span("arrl.classical.run"):
+        dev = _device.resolve(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        with span("arrl.classical.prepare"):
+            data = prepare_pair(src_vertices, tar_vertices, cfg, dev)
+        if init_params is None:
+            params = init_twist(gen)
+        else:
+            params = torch.as_tensor(np.asarray(init_params, np.float32),
+                                     device=dev).reshape(6)
+        carry, hist = _loop(cfg, make_step(cfg, data), params, data["src"], gen, callback)
+        return carry[0], hist
 
 
 def _loop(cfg: ClassicalConfig, step, params, src, gen, callback, mode=None):
@@ -229,7 +232,8 @@ def _loop(cfg: ClassicalConfig, step, params, src, gen, callback, mode=None):
         while done < cfg.n_epochs:
             # the final block runs only the remaining epochs
             n = min(cfg.log_every, cfg.n_epochs - done)
-            carry, block = epochs(step, carry, u4_shape, gen, n, state)
+            with span("arrl.classical.block"):
+                carry, block = epochs(step, carry, u4_shape, gen, n, state)
             done += n
             if pending is not None:
                 _flush(pending, history, callback)
@@ -237,7 +241,8 @@ def _loop(cfg: ClassicalConfig, step, params, src, gen, callback, mode=None):
         if pending is not None:
             _flush(pending, history, callback)
     finally:
-        state.clear()  # the graph and its memory pool go with the run
+        with span("arrl.classical.release"):
+            state.clear()  # the graph and its memory pool go with the run
     hist = {k: np.concatenate([h[k] for h in history]) for k in history[0]}
     return carry, hist
 
@@ -269,11 +274,12 @@ def _static_block(step, carry, u4_shape, gen, n, state):
     for i in range(n):
         torch.rand(u4_shape, generator=gen, device=dev, out=u4)
         if state["graph"] is None:
-            carry, metrics = step(carry, u4)
-            if state["mode"] == "graph":
-                state["graph"] = graphs.step_graph(step, carry, (u4,))
-            else:
-                state["graph"] = _EagerStep(step, carry, (u4,))
+            with span("arrl.classical.capture"):
+                carry, metrics = step(carry, u4)
+                if state["mode"] == "graph":
+                    state["graph"] = graphs.step_graph(step, carry, (u4,))
+                else:
+                    state["graph"] = _EagerStep(step, carry, (u4,))
         else:
             metrics = state["graph"].replay()
         if rows is None:
@@ -301,11 +307,12 @@ def _flush(pending, history, callback):
     """Fetch a finished block's metrics to the host (one sync per block)
     and fire the callback with host values."""
     done, params, metrics, src_t = pending
-    metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
-    history.append(metrics)
-    if callback is not None:
-        callback(done, params.cpu().numpy(),
-                 {k: v[-1] for k, v in metrics.items()}, src_t.cpu().numpy())
+    with span("arrl.classical.fetch"):
+        metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+        history.append(metrics)
+        if callback is not None:
+            callback(done, params.cpu().numpy(),
+                     {k: v[-1] for k, v in metrics.items()}, src_t.cpu().numpy())
 
 
 def final_transform(params):
@@ -419,15 +426,18 @@ def run_batch(src_batch, tar_batch, cfg: ClassicalConfig = ClassicalConfig(),
     run's one generator, unless ``init_params`` (B, 6) is given; the
     callback as in ``run``, with per-pair (B,) metrics. Returns (params
     (B, 6), history of (n_epochs, B) metric arrays)."""
-    dev = _device.resolve(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    data = prepare_pairs(src_batch, tar_batch, cfg, dev)
-    B = data["src"].shape[0]
-    if init_params is None:
-        params = torch.stack([init_twist(gen) for _ in range(B)])
-    else:
-        params = torch.as_tensor(np.asarray(init_params, np.float32),
-                                 device=dev).reshape(B, 6)
-    carry, hist = _loop(cfg, make_batch_step(cfg, data), params, data["src"], gen, callback)
-    return carry[0], hist
+    with span("arrl.classical.run"):
+        dev = _device.resolve(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        with span("arrl.classical.prepare"):
+            data = prepare_pairs(src_batch, tar_batch, cfg, dev)
+        B = data["src"].shape[0]
+        if init_params is None:
+            params = torch.stack([init_twist(gen) for _ in range(B)])
+        else:
+            params = torch.as_tensor(np.asarray(init_params, np.float32),
+                                     device=dev).reshape(B, 6)
+        carry, hist = _loop(cfg, make_batch_step(cfg, data), params, data["src"], gen,
+                            callback)
+        return carry[0], hist

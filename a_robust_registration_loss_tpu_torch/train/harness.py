@@ -64,6 +64,7 @@ from a_robust_registration_loss_tpu_torch.train import graphs
 from a_robust_registration_loss_tpu_torch.utils import CheckPointManager, MetricsWriter
 from a_robust_registration_loss_tpu_torch.utils import debug
 from a_robust_registration_loss_tpu_torch.utils.checkpoint import to_host
+from a_robust_registration_loss_tpu_torch.utils.timing import span
 
 # metrics keys aggregated by SUM over an epoch instead of the mean (event
 # counters; everything else is a per-batch average)
@@ -171,7 +172,9 @@ def run_split(split: Split, model, batch, u4, opt_state=None):
     metrics + ``loss`` and ``nonfinite_steps``); without, the metrics."""
     out = split.pieces[0](model, batch, u4)
     for piece in split.pieces[1:]:
-        out = piece(model, batch, u4, split.solve(model, out))
+        with span("arrl.step.solve"):
+            solved = split.solve(model, out)
+        out = piece(model, batch, u4, solved)
     if split.update is None:
         return out
     loss, metrics = out
@@ -277,7 +280,9 @@ class _GraphStep:
         self.gather.replay()
         out, taps = self.pieces[0]()
         for i, piece in enumerate(self.pieces[1:], 1):
-            out = piece(*split.solve(model, out), *taps)
+            with span("arrl.step.solve"):
+                solved = split.solve(model, out)
+            out = piece(*solved, *taps)
             if i < len(self.pieces) - 1:
                 out, taps = out
         if split.update is None:
@@ -514,66 +519,72 @@ class Trainer:
         history = []
         scans = {}  # the scanned epoch's steps and their graphs, for this fit
         for epoch in range(start, epochs):
-            if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
-            gen = self._generator(epoch)
-            t0 = time.perf_counter()
-            if self._scanned("train", train_loader):
-                opt_state, train_metrics = self._scanned_epoch(scans, "train", model,
-                                                               train_loader, gen, opt_state)
-            else:
-                agg = _EpochMetrics()
-                for batch in train_loader:
-                    batch, kw = self._shard(batch)
-                    opt_state, metrics = self.train_step(model, opt_state, batch, gen, **kw)
-                    agg.push(metrics)
-                train_metrics = self._dp_mean(agg.result())
-            if self.lead:
-                self.writer.add_scalars(train_metrics, epoch, prefix="train/")
-
-            eval_metrics = {}
-            if self.eval_step is not None and test_loader is not None:
-                egen = self._generator(epoch, 1_000_000)
-                with torch.no_grad():
-                    if self._scanned("eval", test_loader):
-                        _, eval_metrics = self._scanned_epoch(scans, "eval", model,
-                                                              test_loader, egen)
+            with span("arrl.fit.epoch"):
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                gen = self._generator(epoch)
+                t0 = time.perf_counter()
+                with span("arrl.fit.train"):
+                    if self._scanned("train", train_loader):
+                        opt_state, train_metrics = self._scanned_epoch(
+                            scans, "train", model, train_loader, gen, opt_state)
                     else:
-                        eagg = _EpochMetrics()
-                        for batch in test_loader:
+                        agg = _EpochMetrics()
+                        for batch in train_loader:
                             batch, kw = self._shard(batch)
-                            eagg.push(self.eval_step(model, batch, egen, **kw))
-                        eval_metrics = self._dp_mean(eagg.result(counters=()))
+                            opt_state, metrics = self.train_step(model, opt_state, batch, gen,
+                                                                 **kw)
+                            agg.push(metrics)
+                        train_metrics = self._dp_mean(agg.result())
                 if self.lead:
-                    self.writer.add_scalars(eval_metrics, epoch, prefix="test/")
+                    self.writer.add_scalars(train_metrics, epoch, prefix="train/")
 
-            score = eval_metrics.get(self.score_key,
-                                     train_metrics.get(self.score_key))
-            history.append({"epoch": epoch, **train_metrics,
-                            **{f"test_{k}": v for k, v in eval_metrics.items()}})
-            if not self.lead:
-                continue
-            if cfg.save_every and epoch % cfg.save_every == 0:
-                self.ckpt.save(
-                    epoch,
-                    {"params": model.state_dict(), "opt_state": opt_state, "epoch": epoch},
-                    score=score,
-                )
-            if (cfg.artifacts_every and self.artifact_fn is not None
-                    and epoch % cfg.artifacts_every == 0):
-                with torch.no_grad():
-                    clouds = to_host(self.artifact_fn(model, self._put(next(iter(train_loader)))))
-                dump_registration_objs(os.path.join(cfg.exp_dir, "artifacts"),
-                                       f"ep{epoch}", *clouds)
-            dt = time.perf_counter() - t0
-            self.writer.add_scalar("time/epoch_seconds", dt, epoch)
-            self.writer.flush()
-            log(f"epoch {epoch}: "
-                + " ".join(f"{k}={v:.6f}" for k, v in train_metrics.items())
-                + (" | test: " + " ".join(
-                    f"{k}={v:.6f}" for k, v in eval_metrics.items())
-                   if eval_metrics else "")
-                + f" ({dt:.1f}s)")
+                eval_metrics = {}
+                if self.eval_step is not None and test_loader is not None:
+                    egen = self._generator(epoch, 1_000_000)
+                    with span("arrl.fit.eval"), torch.no_grad():
+                        if self._scanned("eval", test_loader):
+                            _, eval_metrics = self._scanned_epoch(scans, "eval", model,
+                                                                  test_loader, egen)
+                        else:
+                            eagg = _EpochMetrics()
+                            for batch in test_loader:
+                                batch, kw = self._shard(batch)
+                                eagg.push(self.eval_step(model, batch, egen, **kw))
+                            eval_metrics = self._dp_mean(eagg.result(counters=()))
+                    if self.lead:
+                        self.writer.add_scalars(eval_metrics, epoch, prefix="test/")
+
+                score = eval_metrics.get(self.score_key,
+                                         train_metrics.get(self.score_key))
+                history.append({"epoch": epoch, **train_metrics,
+                                **{f"test_{k}": v for k, v in eval_metrics.items()}})
+                if not self.lead:
+                    continue
+                if cfg.save_every and epoch % cfg.save_every == 0:
+                    with span("arrl.fit.checkpoint"):
+                        self.ckpt.save(
+                            epoch,
+                            {"params": model.state_dict(), "opt_state": opt_state,
+                             "epoch": epoch},
+                            score=score,
+                        )
+                if (cfg.artifacts_every and self.artifact_fn is not None
+                        and epoch % cfg.artifacts_every == 0):
+                    with torch.no_grad():
+                        clouds = to_host(self.artifact_fn(model,
+                                                          self._put(next(iter(train_loader)))))
+                    dump_registration_objs(os.path.join(cfg.exp_dir, "artifacts"),
+                                           f"ep{epoch}", *clouds)
+                dt = time.perf_counter() - t0
+                self.writer.add_scalar("time/epoch_seconds", dt, epoch)
+                self.writer.flush()
+                log(f"epoch {epoch}: "
+                    + " ".join(f"{k}={v:.6f}" for k, v in train_metrics.items())
+                    + (" | test: " + " ".join(
+                        f"{k}={v:.6f}" for k, v in eval_metrics.items())
+                       if eval_metrics else "")
+                    + f" ({dt:.1f}s)")
         scans.clear()  # the graphs and their memory pools go with the fit
         self.ckpt.wait_until_finished()  # commit any in-flight async save
         if self.mesh is not None:

@@ -7,4 +7,4 @@ from a_robust_registration_loss_tpu_torch.utils.logging import (  # noqa: F401
     MetricsWriter,
     prepare_logger,
 )
-from a_robust_registration_loss_tpu_torch.utils.timing import StepTimer, trace  # noqa: F401
+from a_robust_registration_loss_tpu_torch.utils.timing import StepTimer, span, trace  # noqa: F401
