@@ -42,6 +42,7 @@ SIGNATURES = {
     "arrl_gather_sort": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "arrl_gather_segsum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arrl_logistic": [_P, _P, _I, _I, _P],
+    "arrl_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -39,8 +39,19 @@ def index_points(points, idx):
 def farthest_point_sample(xyz, npoint: int, start_idx=None):
     """Greedy farthest-point sampling: xyz (B, N, 3) -> (B, npoint) int64.
 
-    Seeds at ``start_idx`` ((B,) or None for 0). A Python loop of npoint
-    steps with no host sync: the running argmax stays on the device."""
+    Seeds at ``start_idx`` ((B,) or None for 0). Routed by
+    ``ops/cuda/fps.py``: one launch of the kernel ``csrc/fps.cu`` for a
+    CUDA tensor, the plain loop below for a CPU tensor."""
+    # imported here: ops/cuda/fps.py imports this module for the plain loop
+    from a_robust_registration_loss_tpu_torch.ops.cuda import fps
+
+    return fps.farthest_point_sample(xyz, npoint, start_idx)
+
+
+def farthest_point_sample_reference(xyz, npoint: int, start_idx=None):
+    """The plain version of ``farthest_point_sample``: a Python loop of
+    npoint steps with no host sync, the running argmax on the device. The
+    CPU route, and the kernel's yardstick on the card."""
     B, N, _ = xyz.shape
     if start_idx is None:
         farthest = torch.zeros(B, dtype=torch.long, device=xyz.device)

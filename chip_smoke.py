@@ -152,7 +152,8 @@ Phases:
    data layer: ``estimate_normals`` of 4,096 points
    timed on the card,
    ``make_dataset.main`` writing the 60 pairs (views layout) with its wall
-   time and no kernel launched, the objio backend (``native``);
+   time, four FPS launches a pair and no other kernel launched, the objio
+   backend (``native``);
    ``generate_datasets`` giving 12 training batches of 4 and 12 test
    batches, and ``DeviceCache``'s batches equal to the streaming
    ``Loader``'s bit for bit over two epochs;
@@ -306,7 +307,15 @@ Phases:
    A CUDA graph of the unbatched call captured on each radius's inputs and
    replayed on both (the inputs copied into its static buffers), each
    replay equal to the eager call bit for bit, under a profile that fails
-   on a host copy or wait, as does a profile of the eager call.
+   on a host copy or wait, as does a profile of the eager call;
+24. (run after phase 3) farthest-point sampling (``fps_phase``,
+   ``csrc/fps.cu``) at the classical cells' sizes: the kernel's indices
+   equal to the plain loop's on the card bit for bit at N = 8,192 and 5,000
+   picks, B = 1 and 8 (``synthetic_pairs``' sources), one launch a call;
+   its device time at each B, the wrapper call's, the plain loop's, its
+   bounds by operations and bytes, and its time at one point, the chain of
+   5,000 block-wide argmax rounds alone (the design's latency floor). The
+   ``prepare_pair`` before phase 5 launches it once a cloud.
 
 Every traced window opens with ``PRIME`` spin kernels: once the card has
 idled, the tracer drops the first device records of each window, whatever
@@ -380,6 +389,7 @@ STAGE1 = {  # kernel entry -> the stage1_kernel instantiation (clouds, d2, recon
     "stage1_pair_d2_recon": (2, True, True, False),  # intersect_stage1_pair's defaults
 }
 PTS = dict(emit_d2=False, emit_recon=False, emit_pts=True)
+FPS_N, FPS_NPOINT, FPS_BATCHES = 8192, 5000, (1, 8)  # the classical cells' clouds and seeds
 DEV = "cuda"
 
 
@@ -577,6 +587,48 @@ def probe_phase(torch, PB):
               "bench.py:174", err, ms, ms, plain, ops, 8 * n, rate,
               measured_ops_per_s=rate)
     return e, rate, launches
+
+
+def fps_phase(torch, G, FK, rate):
+    """Farthest-point sampling at the classical cells' sizes against the
+    plain loop, then timed (phase 24). Returns (entry, launches)."""
+    src, _ = synthetic_pairs(max(FPS_BATCHES), FPS_N)
+    clouds = torch.tensor(src, device=DEV)
+    FK.launches = 0
+    times = {}
+    for B in FPS_BATCHES:
+        xyz = clouds[:B]
+        before = FK.launches
+        got = FK.farthest_point_sample(xyz, FPS_NPOINT)
+        check(FK.launches == before + 1, f"fps B={B}: {FK.launches - before} launches in a call")
+        want = G.farthest_point_sample_reference(xyz, FPS_NPOINT)
+        check(torch.equal(got, want), f"fps B={B}: the kernel's indices differ from the plain loop's")
+        print(f"fps B={B} N={FPS_N} npoint={FPS_NPOINT}: equal to the plain loop bit for bit",
+              flush=True)
+
+        def call():
+            return FK.farthest_point_sample(xyz, FPS_NPOINT)
+
+        times[B] = (kernel_ms(torch, call, 10, "fps_kernel"), cuda_ms(torch, call, 10))
+    one = clouds[:1, :1].contiguous()
+    floor = kernel_ms(torch, lambda: FK.farthest_point_sample(one, FPS_NPOINT), 10, "fps_kernel")
+    plain = cuda_ms(torch, lambda: G.farthest_point_sample_reference(clouds[:1], FPS_NPOINT), 1,
+                    warmup=0)
+    launches = FK.launches
+    ops, nbytes = FK.operations(1, FPS_N, FPS_NPOINT), FK.nbytes(1, FPS_N, FPS_NPOINT)
+    (mb, mby), (db, dby) = bounds(ops, nbytes, rate)
+    for B, (ms, call_ms) in times.items():
+        print(f"fps B={B}: kernel {ms:.4f} ms, call {call_ms:.4f} ms; at one point (the chain of "
+              f"{FPS_NPOINT} argmax rounds alone) {floor:.4f} ms, {1e3 * floor / FPS_NPOINT:.3f} us "
+              f"a round; bound per cloud {mb:.5f} ms by {mby} at the measured rate, {db:.5f} ms "
+              f"by {dby} at the data sheet's; plain loop (B = 1) {plain:.2f} ms", flush=True)
+    ms, call_ms = times[1]
+    e = entry("fps", "a_robust_registration_loss_tpu_torch/csrc/fps.cu",
+              "none: XLA's lax.fori_loop, a_robust_registration_loss_tpu/ops/geometry.py:41",
+              0.0, ms, call_ms, plain, ops, nbytes, rate,
+              shape=[1, FPS_N, FPS_NPOINT], latency_floor_ms=floor,
+              by_batch={B: dict(ms=t[0], call_ms=t[1]) for B, t in times.items()})
+    return e, launches
 
 
 def stage1_phase(torch, M, IK, data, lines, rate):
@@ -2492,6 +2544,7 @@ def data_phase(torch, mods, tmp):
     from a_robust_registration_loss_tpu_torch.data import dataset as DS
     from a_robust_registration_loss_tpu_torch.data import make_dataset as MK
     from a_robust_registration_loss_tpu_torch.data import objio
+    from a_robust_registration_loss_tpu_torch.ops.cuda import fps as FK
 
     G, M, IK, RS, PB = mods[:5]
     base, data = os.path.join(tmp, "base"), os.path.join(tmp, "views")
@@ -2506,6 +2559,7 @@ def data_phase(torch, mods, tmp):
     torch.cuda.synchronize()
     ms_normals = 1e3 * (time.perf_counter() - t0)
     counts(IK, RS, PB, reset=True)
+    FK.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
@@ -2517,6 +2571,8 @@ def data_phase(torch, mods, tmp):
     dt = time.perf_counter() - t0
     check_counts(counts(IK, RS, PB), {}, 1, "make_dataset")
     check(n == 6 * VIEWS5, f"make_dataset wrote {n} pairs")
+    # FPS: a pair's two subsets of its base cloud and its two neighbourhood sets
+    check(FK.launches == 4 * n, f"make_dataset: {FK.launches} fps launches for {n} pairs")
     check(objio.backend() == "native", f"objio backend {objio.backend()}")
     print(f"data: make_dataset.main, 6 base clouds of {N_BASE5} points x {VIEWS5} views at "
           f"{NP5} points, F={NP5}: {n} pairs in {dt:.2f} s ({log.getvalue().splitlines()[-1]}); "
@@ -4201,6 +4257,7 @@ def main():
     from a_robust_registration_loss_tpu_torch.ops import lines as LN
     from a_robust_registration_loss_tpu_torch.ops import metric as M
     from a_robust_registration_loss_tpu_torch.ops.cuda import _build
+    from a_robust_registration_loss_tpu_torch.ops.cuda import fps as FK
     from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
     from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
     from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
@@ -4229,13 +4286,16 @@ def main():
     rpm_gather, rpm_gather_inputs = timed(seconds, "rpm_grouping", rpm_grouping_phase, torch,
                                           mods3, data5)
     probe, rate, probe_launches = timed(seconds, "probe", probe_phase, torch, PB)
+    fps, fps_launches = timed(seconds, "fps", fps_phase, torch, G, FK, rate)
 
     cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES,
                                     compute_chamfer=False)
     v1, v2 = synthetic_pair()
     t0 = time.perf_counter()
+    FK.launches = 0
     data = classical.prepare_pair(v1, v2, cfg, device=DEV)
     torch.cuda.synchronize()
+    check(FK.launches == 2, f"prepare_pair: {FK.launches} fps launches (want one a cloud)")
     print(f"prepare_pair: {time.perf_counter() - t0:.2f} s, "
           f"F={data['neis_src'].shape[0]}", flush=True)
 
@@ -4272,7 +4332,7 @@ def main():
               m["err"], m["ms"], m["call_ms"], m["plain_ms"], m["ops"], m["nbytes"], rate,
               shape=m["shape"])
         for name, m in modes.items() if name != "stage1_pair_pts"] + [
-            resample, resample_batched, probe]
+            resample, resample_batched, probe, fps]
     p2 = modes["stage1_pair_pts"]
     (mb, _), (db, _) = bounds(p2["ops"], p2["nbytes"], rate)
     pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"],
@@ -4351,7 +4411,8 @@ def main():
     bf16_paths = {p: c for paths_, _ in bf16.values() for p, c in paths_.items()}
     print("bf16 against fp32 on the card, the same weights and batches (NVIDIA card above): "
           + json.dumps({name: numbers for name, (_, numbers) in bf16.items()}), flush=True)
-    paths = {"probe": {"probe_fp32_rate": probe_launches}, "classical": classical_launches,
+    paths = {"probe": {"probe_fp32_rate": probe_launches}, "fps": {"fps": fps_launches},
+             "prepare_pair": {"fps": 2}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
              "dcp_graph_gather": dcp["graph_gather"], "resample_budget": budget,

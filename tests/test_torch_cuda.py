@@ -55,7 +55,12 @@ three DCP train steps through the scanned epoch's graphs equal to three
 eager steps bit for bit; the resampler's skip flags (the round budget's
 second launch) equal to the plain version bit for bit, and the budgeted
 ``resample_lines`` equal to its plain version, eagerly and from a CUDA
-graph replayed on either branch's inputs.
+graph replayed on either branch's inputs; and farthest-point sampling's
+kernel equal to the plain loop on the card bit for bit, one launch a call,
+at B of 1, 2 and 8, clouds held on chip and streamed, every pick count from
+1 to N + 3, from index 0 and from given (also negative) starts, on lattice
+and duplicated points (exact ties), NaN coordinates, the classical cells'
+clouds and ``sample_neighs``.
 """
 
 import numpy as np
@@ -66,6 +71,7 @@ from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
 from a_robust_registration_loss_tpu_torch.models import dcp as D
+from a_robust_registration_loss_tpu_torch.ops.cuda import fps as FK
 from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
 from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
@@ -456,6 +462,96 @@ def test_probe_matches_plain(cuda_device, iters):
 def test_probe_measures_a_rate(cuda_device):
     rate, ms = PB.measured_fp32_rate(cuda_device)
     assert rate > 0 and ms > 0
+
+
+FPS_KINDS = ("grid", "duplicated", "normal")  # row r of a batch is kind r % 3
+FPS_NPOINT = {"1": lambda N: 1, "64": lambda N: 64, "5000": lambda N: 5000,
+              "N": lambda N: N, "N+3": lambda N: N + 3}
+
+
+def _fps_clouds(B, N, seed):
+    """(B, N, 3) float32: integer lattice points (repeated: exact ties
+    everywhere), then a normal cloud with each point 4 times, then a plain
+    normal cloud, in turn."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for r in range(B):
+        kind = FPS_KINDS[r % len(FPS_KINDS)]
+        if kind == "grid":
+            rows.append(rng.integers(0, 12, (N, 3)).astype(np.float32))
+        elif kind == "duplicated":
+            base = np.repeat(rng.standard_normal((-(-N // 4), 3)), 4, axis=0)
+            rows.append(base[rng.permutation(base.shape[0])[:N]].astype(np.float32))
+        else:
+            rows.append(rng.standard_normal((N, 3)).astype(np.float32))
+    return np.stack(rows)
+
+
+def _fps_case(xyz, npoint, start=None):
+    """The kernel's indices equal the plain loop's on the card, in one launch."""
+    before = FK.launches
+    got = FK.farthest_point_sample(xyz, npoint, start)
+    assert FK.launches == before + 1
+    want = G.farthest_point_sample_reference(xyz, npoint, start)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_start", [False, True], ids=["from0", "start"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("N", [1024, 8192, 8193, 40000])
+@pytest.mark.parametrize("npoint", list(FPS_NPOINT))
+def test_fps_kernel_matches_plain(cuda_device, npoint, N, B, with_start):
+    # 8,192 is the last cloud held on chip, 8,193 and 40,000 stream; a start
+    # may be negative (counted from the end, as indexing does)
+    xyz = torch.tensor(_fps_clouds(B, N, N + B), device=cuda_device)
+    start = None
+    if with_start:
+        start = torch.tensor(np.random.default_rng(B).integers(-N, N, B), device=cuda_device)
+    _fps_case(xyz, FPS_NPOINT[npoint](N), start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1024, 8193])
+def test_fps_kernel_takes_nan_as_the_plain_loop(cuda_device, N):
+    # a NaN distance ranks first in the argmax, and stays the minimum
+    xyz = _fps_clouds(3, N, 7)
+    xyz[2, N // 3, 1] = np.nan
+    xyz[1, N - 1, 0] = np.nan
+    _fps_case(torch.tensor(xyz, device=cuda_device), 64)
+
+
+@pytest.mark.cuda
+def test_fps_kernel_on_the_demo_clouds(cuda_device):
+    """The classical cells' clouds (8,192 points, 5,000 seeds): the pair and
+    each cloud alone, the Fibonacci ellipsoid of the other card tests, and
+    ``sample_neighs`` on the card launching the kernel once, its seeds
+    (each neighbourhood's first point) the plain loop's picks."""
+    from portbench import traffic as TF
+
+    src, tar, _, _ = TF.pair(TF.load("full"), 2147483659, 0)
+    pair = torch.tensor(np.stack([src, tar]), device=cuda_device)
+    for xyz in (pair, pair[:1], pair[1:].contiguous(),
+                torch.tensor(_cloud(8192, 5), device=cuda_device)[None]):
+        idx = _fps_case(xyz, 5000)
+        before = FK.launches
+        neigh = G.sample_neighs(xyz[0], 5000, 3)
+        assert FK.launches == before + 1
+        assert torch.equal(neigh[::3], xyz[0, idx[0]])
+
+
+@pytest.mark.cuda
+def test_fps_raises_on_cuda_input_it_cannot_take(cuda_device):
+    x = torch.zeros((2, 64, 3), device=cuda_device)
+    for bad in (x.double(), x.transpose(0, 1).contiguous().transpose(0, 1),
+                torch.zeros((0, 64, 3), device=cuda_device),
+                torch.zeros((2, 0, 3), device=cuda_device)):
+        with pytest.raises(ValueError):
+            FK.farthest_point_sample(bad, 8)
+    with pytest.raises(ValueError):
+        FK.farthest_point_sample(x, 8, torch.zeros(3, dtype=torch.long, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from a_robust_registration_loss_tpu.ops import geometry as JG
 from a_robust_registration_loss_tpu_torch.ops import geometry as G
+from a_robust_registration_loss_tpu_torch.ops.cuda import fps as FK
 from torch_port_helpers import sphere_cloud, t
 
 torch.set_num_threads(1)
@@ -25,13 +26,36 @@ def clouds():
             sphere_cloud(260, rng, noise=0.03) * np.float32(1.3))
 
 
-def test_farthest_point_sample_exact(clouds):
+FPS_ENTRIES = {"geometry": G.farthest_point_sample, "wrapper": FK.farthest_point_sample,
+               "plain": G.farthest_point_sample_reference}
+
+
+@pytest.mark.parametrize("entry", list(FPS_ENTRIES))
+@pytest.mark.parametrize("npoint,with_start", [(64, True), (64, False), (253, True)])
+def test_farthest_point_sample_exact(clouds, entry, npoint, with_start):
+    # every entry on a CPU tensor is the plain loop, and launches nothing;
+    # npoint > N keeps picking once every point is taken
     xyz = np.stack([clouds[0][:250], clouds[1][:250]])
-    start = np.array([0, 17], np.int32)
-    got = G.farthest_point_sample(t(xyz), 64, t(start)).numpy()
-    ref = np.asarray(JG.farthest_point_sample(jnp.asarray(xyz), 64,
-                                              jnp.asarray(start)))
+    start = np.array([0, 17], np.int32) if with_start else None
+    before = FK.launches
+    got = FPS_ENTRIES[entry](t(xyz), npoint, None if start is None else t(start)).numpy()
+    ref = np.asarray(JG.farthest_point_sample(jnp.asarray(xyz), npoint,
+                                              None if start is None else jnp.asarray(start)))
     np.testing.assert_array_equal(got, ref)
+    assert FK.launches == before
+
+
+@pytest.mark.parametrize("shape,start", [((250, 3), None), ((2, 250, 4), None),
+                                         ((2, 250, 3), [0, 1, 2]), ((2, 250, 3), [5]),
+                                         ((2, 250, 3), 3)],
+                         ids=["no_batch_axis", "four_columns", "start_too_long",
+                              "start_too_short", "start_scalar"])
+def test_farthest_point_sample_raises_on_a_wrong_shape(shape, start):
+    # checked before the route is chosen, so on the CPU too
+    with pytest.raises(ValueError):
+        FK.farthest_point_sample(torch.zeros(shape), 8, start)
+    with pytest.raises(ValueError):
+        G.farthest_point_sample(torch.zeros(shape), 8, start)
 
 
 def test_knn_exact_including_ties():
