@@ -170,18 +170,22 @@ def run_split(split: Split, model, batch, u4, opt_state=None):
     """One step of ``split``, eagerly: with an update, the gradient of the
     loss to every parameter and the update in place, returning (opt_state,
     metrics + ``loss`` and ``nonfinite_steps``); without, the metrics."""
-    out = split.pieces[0](model, batch, u4)
+    with span("arrl.step.forward"):
+        out = split.pieces[0](model, batch, u4)
     for piece in split.pieces[1:]:
         with span("arrl.step.solve"):
             solved = split.solve(model, out)
-        out = piece(model, batch, u4, solved)
+        with span("arrl.step.forward"):
+            out = piece(model, batch, u4, solved)
     if split.update is None:
         return out
     loss, metrics = out
     params = list(model.parameters())
-    grads = debug.grad(loss, params, allow_unused=True)
+    with span("arrl.step.backward"):
+        grads = debug.grad(loss, params, allow_unused=True)
     loss = loss.detach()
-    opt_state, nonfinite = split.update(grads, opt_state, params, loss)
+    with span("arrl.step.update"):
+        opt_state, nonfinite = split.update(grads, opt_state, params, loss)
     return opt_state, dict(metrics, loss=loss, nonfinite_steps=nonfinite)
 
 
@@ -278,20 +282,24 @@ class _GraphStep:
     def __call__(self, opt_state):
         split, model = self.split, self.model
         self.gather.replay()
-        out, taps = self.pieces[0]()
+        with span("arrl.step.forward"):
+            out, taps = self.pieces[0]()
         for i, piece in enumerate(self.pieces[1:], 1):
             with span("arrl.step.solve"):
                 solved = split.solve(model, out)
-            out = piece(*solved, *taps)
+            with span("arrl.step.forward"):
+                out = piece(*solved, *taps)
             if i < len(self.pieces) - 1:
                 out, taps = out
         if split.update is None:
             return out
         loss, metrics = out
-        grads = debug.grad(loss, self.params, allow_unused=True)
+        with span("arrl.step.backward"):
+            grads = debug.grad(loss, self.params, allow_unused=True)
         loss = loss.detach()
-        graphs.copy_carry(self.opt, opt_state)  # nothing to copy unless an eager step ran
-        nonfinite = self._update(grads, loss)
+        with span("arrl.step.update"):
+            graphs.copy_carry(self.opt, opt_state)  # nothing to copy unless an eager step ran
+            nonfinite = self._update(grads, loss)
         return self.opt, dict(metrics, loss=loss, nonfinite_steps=nonfinite)
 
     def _update(self, grads, loss):

@@ -22,8 +22,10 @@ or an epoch's parts lie inside its root:
   ``Trainer.fit``; inside it ``arrl.fit.train`` and ``arrl.fit.eval`` (the
   passes with their fetches) and ``arrl.fit.checkpoint`` (the save on the
   loop's thread: the wait for the previous commit, the device-to-host
-  copy); ``arrl.step.solve``, each solve between two pieces of a split
-  step (DCP's SVD), lies inside a pass.
+  copy); inside a pass, a split step's parts: ``arrl.step.forward``
+  (each piece, captured or eager), ``arrl.step.solve`` (each solve between
+  two pieces: the SVDs of DCP and RPM-Net), and in a train step
+  ``arrl.step.backward`` (the gradient) and ``arrl.step.update`` (Adam).
 
 ``with utils.trace(logdir): ...`` around a ``classical.run`` or a
 ``Trainer.fit`` writes them into its Chrome trace.
@@ -41,7 +43,7 @@ import torch
 SPANS = ("arrl.classical.run", "arrl.classical.prepare", "arrl.classical.block",
          "arrl.classical.capture", "arrl.classical.fetch", "arrl.classical.release",
          "arrl.fit.epoch", "arrl.fit.train", "arrl.fit.eval", "arrl.fit.checkpoint",
-         "arrl.step.solve")
+         "arrl.step.forward", "arrl.step.solve", "arrl.step.backward", "arrl.step.update")
 
 _OFF = contextlib.nullcontext()  # every span of a run with no profiler
 

@@ -9,7 +9,8 @@ nested by their intervals on the host thread.
   per block and the release.
 - ``Trainer.fit`` over a ``DeviceCache`` (the scanned epoch): per epoch a
   root holding the train pass, the eval pass and the checkpoint, and one
-  solve per step of DCP's split inside the passes.
+  solve per step of DCP's split inside the passes; a forward span a piece,
+  and in a train step its backward and update after them.
 - With no profiler a span is one shared no-op that enters no profiler
   range; with one, a function-scope range; a span closes when its body
   raises; ``trace``'s Chrome trace holds the spans.
@@ -168,6 +169,40 @@ def test_a_fit_nests_its_spans(tmp_path):
         assert len(_within(spans, "arrl.step.solve", tr)) == len(train) == 2
         assert len(_within(spans, "arrl.step.solve", ev)) == len(test) == 2
     assert len([s for s in spans if s[0] == "arrl.step.solve"]) == 8
+
+
+def test_a_fit_step_nests_its_forward_backward_and_update(tmp_path):
+    """Each split step of a pass: an ``arrl.step.forward`` a piece, the
+    solves between them; a train step then its ``arrl.step.backward`` and
+    its ``arrl.step.update``, in that order; a test step no backward and no
+    update."""
+    rng = np.random.default_rng(10)
+    train = DS.DeviceCache(DS.Loader(Items(_dcp_items(rng, 4)), 2, shuffle=True,
+                                     drop_last=True, seed=4), device="cpu")
+    test = DS.DeviceCache(DS.Loader(Items(_dcp_items(rng, 2)), 1, shuffle=False,
+                                    drop_last=False, seed=4), device="cpu")
+    cfg = TD.DCPTrainConfig(
+        lr=1e-4, loss=LS.LossConfig(n_lines=64),
+        model=D.DCPConfig(emb_nn="pointnet", emb_dims=16, ff_dims=32, n_heads=2),
+        fit=H.FitConfig(epochs=1, exp_dir=str(tmp_path), log_tensorboard=False, seed=3,
+                        async_checkpoints=False))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        TD.train(cfg, train, test, log=lambda m: None, device="cpu")
+    spans = _spans(prof)
+    (tr,) = [s for s in spans if s[0] == "arrl.fit.train"]
+    (ev,) = [s for s in spans if s[0] == "arrl.fit.eval"]
+    pieces = len(TD.train_split(cfg).pieces)
+    assert pieces == len(TD.eval_split(cfg).pieces) == 2
+    parts = ("arrl.step.forward", "arrl.step.solve", "arrl.step.backward", "arrl.step.update")
+    steps = [s for s in spans if s[0] in parts and _inside(s, tr)]
+    # 2 train steps: forward, solve, forward, backward, update each
+    one = ["arrl.step.forward", "arrl.step.solve"] * (pieces - 1) + [
+        "arrl.step.forward", "arrl.step.backward", "arrl.step.update"]
+    assert [s[0] for s in steps] == one * len(train) == one * 2
+    assert all(a[2] <= b[1] for a, b in zip(steps, steps[1:]))  # one after another
+    tests = [s[0] for s in spans if s[0] in parts and _inside(s, ev)]
+    assert tests == ["arrl.step.forward", "arrl.step.solve", "arrl.step.forward"] * len(test)
+    assert len([s for s in spans if s[0] == "arrl.step.backward"]) == len(train)
 
 
 def test_off_a_span_is_one_shared_noop(monkeypatch):
