@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry points: name -> argtypes (pointers and the stream as c_void_p).
 SIGNATURES = {
     "arrl_stage1": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -43,6 +44,7 @@ SIGNATURES = {
     "arrl_gather_segsum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arrl_logistic": [_P, _P, _I, _I, _P],
     "arrl_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "arrl_chamfer": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P],
 }
 
 _lib = None

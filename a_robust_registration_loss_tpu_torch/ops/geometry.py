@@ -203,7 +203,21 @@ def chamfer_distance(points_x, points_y, per_sample: bool = False):
     """Mean over the concatenation of the two directions' nearest-neighbour
     squared distances: points_x (B, M, 3), points_y (B, N, 3). A scalar over
     the whole batch, or with ``per_sample`` one value per sample (B,), as
-    B separate calls give."""
+    B separate calls give.
+
+    Routed by ``ops/cuda/chamfer.py``: one launch of the kernel
+    ``csrc/chamfer.cu`` for CUDA tensors (no gradient), the plain version
+    below for CPU tensors."""
+    # imported here: ops/cuda/chamfer.py imports this module for the plain version
+    from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer
+
+    return chamfer.chamfer_distance(points_x, points_y, per_sample)
+
+
+def chamfer_distance_reference(points_x, points_y, per_sample: bool = False):
+    """The plain version of ``chamfer_distance``: the (B, M, N) matrix of
+    ``square_distance`` and its two minima. The CPU route, and the kernel's
+    yardstick on the card."""
     sqrdis = square_distance(points_x, points_y)
     d1 = sqrdis.amin(dim=2)
     d2 = sqrdis.amin(dim=1)

@@ -36,10 +36,11 @@ and advances the run as every later step does), then capture. A capture
 runs no kernel, so it changes no state.
 
 Launch counts: the kernel wrappers (``ops/cuda/{intersect,resample,
-gather}.py``) count a launch when their Python runs, which for a graph is
-once, at capture. Each graph takes back what its capture counted, keeps it
-as its per-replay counts (``counts``) and adds them on every replay, so the
-counters read as they would after the same steps run eagerly.
+gather,chamfer}.py``) count a launch when their Python runs, which for a
+graph is once, at capture. Each graph takes back what its capture counted,
+keeps it as its per-replay counts (``counts``) and adds them on every
+replay, so the counters read as they would after the same steps run
+eagerly.
 
 Every class raises on a CPU tensor: on the CPU the callers run their steps
 eagerly, through the same static buffers.
@@ -53,11 +54,13 @@ import gc
 import torch
 from torch.utils import _pytree
 
+from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer as CH
 from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GA
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
 from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
 
-_COUNTERS = (("stage1", IK.launches), ("resample", RS.launches), ("gather", GA.launches))
+_COUNTERS = (("stage1", IK.launches), ("resample", RS.launches), ("gather", GA.launches),
+             ("chamfer", CH.launches))
 
 
 def _snapshot():

@@ -184,7 +184,7 @@ def _eval(batch, transforms, cfg: RPMTrainConfig):
     mae, rmse = L.euler_errors(transforms[-1][..., :3, :3], batch["R"].transpose(-1, -2),
                                cfg.loss)
     return dict(loss=(gt_src - pred_src).abs().mean(),
-                loss_chamfer=G.chamfer_distance(batch["points_tar_sample"], pred_src),
+                loss_chamfer=G.chamfer_distance(batch["points_tar_sample"], pred_src.detach()),
                 loss_rot_euler_mae=mae, loss_rot_euler_rmse=rmse)
 
 

@@ -62,8 +62,10 @@ Phases:
    67 TFLOP/s; the resampler's operations are those its inputs need when
    mesh 1 is tested only for the hits of mesh 2, with the bound of both
    meshes for every candidate beside it);
-5. the classical path: ``prepare_pair``, then ``make_step`` for 50 warm-up
-   and 200 timed epochs, one launch of each of its kernels per epoch, a
+5. the classical path: ``prepare_pair``, then ``make_step`` with its
+   chamfer monitor, as the classical cells run it, for 50 warm-up and 200
+   timed epochs, one launch of each of its kernels (stage 1, the resampler
+   and the chamfer distance) per epoch, a
    20-step profile that fails on a host copy or wait, and the kernel path
    against the plain path on the CPU at 2,000 lines;
 6. the batched path, each call one launch for all 32 samples: first
@@ -106,7 +108,7 @@ Phases:
    1e-4 relative;
 10. the DCP path: ``evaluate`` over the 8 batches (every metric finite,
    ``Eval.json`` and the OBJ dumps written to a temporary directory, one
-   resampler and one stage-1 launch per batch), 10 iterations of the
+   resampler, one stage-1 and one chamfer launch per batch), 10 iterations of the
    forward and gradient of ``dcp_train_loss`` through the network to every
    parameter (finite, the SVD head's singular values apart), and
    5-iteration profiles of both that count host copies and waits without
@@ -158,7 +160,8 @@ Phases:
    batches, and ``DeviceCache``'s batches equal to the streaming
    ``Loader``'s bit for bit over two epochs;
 15. FMR through ``train.fmr.main`` on those files: 2 epochs (one batched
-   resampler and 3 stage-1 launches a training step, none an eval step),
+   resampler, 3 stage-1 and one chamfer launch a training step, none an
+   eval step),
    the resume to 3 epochs and an uninterrupted 3-epoch run (every epoch's
    loss within 1e-5), the checkpoints, ``metrics.jsonl``'s
    ``time/epoch_seconds``; ``--eval_only`` (12 twist rows, a finite mean dm,
@@ -175,16 +178,17 @@ Phases:
    alone); a NaN batch skipped with the state unchanged; a degenerate batch
    (both clouds on one line: the Jacobian is the target's) giving
    n_singular = B and g = I;
-16. DCP's CLI on the same files: 1 epoch (one resampler and one stage-1
-   launch a training step and an eval batch), ``--eval_only`` writing
+16. DCP's CLI on the same files: 1 epoch (one resampler, one stage-1 and
+   one chamfer launch a training step and an eval batch), ``--eval_only`` writing
    ``Eval.json``, ``--init_from_ckpt`` from that run (the parameters before
    the first step equal to the loaded ones) and ``--init_from_torch`` on a
    ``.pth`` of the first model's ``state_dict`` under a ``module.`` prefix
    inside ``{"state_dict": ...}`` with an integer beside it;
 17. RPM-Net through ``train.rpmnet.main`` on those files: 1 pretraining
    and 2 training epochs, each step's launches checked by kind (a training
-   step 1 batched resampler, 2 stage-1 ``<2,0,0,1>`` and 4 gather forwards;
-   an eval step 10 gather forwards; a pretraining step 2; no gather
+   step 1 batched resampler, 2 stage-1 ``<2,0,0,1>``, 4 gather forwards
+   and 2 chamfer launches; an eval step 10 gather forwards and 1 chamfer
+   launch; a pretraining step 2 gather forwards; no gather
    backward and nothing else in any), the checkpoint equal to the trained
    state bit for bit (Adam's count and the schedule's apart), the resume to
    3 epochs and an uninterrupted 3-epoch run (every epoch's loss within
@@ -315,7 +319,15 @@ Phases:
    its device time at each B, the wrapper call's, the plain loop's, its
    bounds by operations and bytes, and its time at one point, the chain of
    5,000 block-wide argmax rounds alone (the design's latency floor). The
-   ``prepare_pair`` before phase 5 launches it once a cloud.
+   ``prepare_pair`` before phase 5 launches it once a cloud;
+25. (run after phase 24) the chamfer distance (``chamfer_phase``,
+   ``csrc/chamfer.cu``) at the classical step's monitor, (1, 8,192, 8,192),
+   and at 8 such pairs (``synthetic_pairs``): one launch a call, two calls
+   equal bit for bit, the mean within 2e-5 relative of the plain version
+   (the ATen chain: the (B, M, N) matrix, its scale, broadcast adds and two
+   amins), each minimum within 1e-6 of it, and no more device memory than
+   the minima; the kernel's device time beside its bounds, the wrapper
+   call's, the plain version's call and the device time of its ATen chain.
 
 Every traced window opens with ``PRIME`` spin kernels: once the card has
 idled, the tracer drops the first device records of each window, whatever
@@ -390,6 +402,11 @@ STAGE1 = {  # kernel entry -> the stage1_kernel instantiation (clouds, d2, recon
 }
 PTS = dict(emit_d2=False, emit_recon=False, emit_pts=True)
 FPS_N, FPS_NPOINT, FPS_BATCHES = 8192, 5000, (1, 8)  # the classical cells' clouds and seeds
+CHAMFER_N, CHAMFER_BATCHES = 8192, (1, 8)  # the classical step's monitor, and 8 such pairs
+DCP_STEP = {  # dcp_cal_loss's launches: a training step or an evaluated batch
+    "resample_batched": 1, "stage1_pair_pts": 1, "chamfer": 1}
+FMR_STEP = {  # fmr_train_loss's: a training step (the evaluation launches none)
+    "resample_batched": 1, "stage1_pair_pts": 3, "chamfer": 1}
 DEV = "cuda"
 
 
@@ -535,6 +552,7 @@ def counts(IK, RS, PB, reset=False):
     """The launch counters by kernel entry of the JSON line, plus
     ``stage1_other``, the stage-1 launches of any other instantiation;
     zeroes them when ``reset``."""
+    from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer as CH
     from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
 
     if reset:
@@ -542,11 +560,13 @@ def counts(IK, RS, PB, reset=False):
         RS.launches.clear()
         PB.launches = 0
         GK.launches.update(fwd=0, bwd_sort=0, bwd_sum=0)
+        CH.launches.update(kernel=0)
     out = {name: IK.launches[IK.instantiation(*key)] for name, key in STAGE1.items()}
     out["stage1_other"] = sum(IK.launches.values()) - sum(out.values())
     out.update(resample_sample_and_hit=RS.launches["single"],
                resample_batched=RS.launches["batched"], probe_fp32_rate=PB.launches,
-               gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd_sum"])
+               gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd_sum"],
+               chamfer=CH.launches["kernel"])
     check(GK.launches["bwd_sort"] == GK.launches["bwd_sum"],
           f"the gather's backward sorted and summed unequally often: {GK.launches}")
     return out
@@ -628,6 +648,64 @@ def fps_phase(torch, G, FK, rate):
               0.0, ms, call_ms, plain, ops, nbytes, rate,
               shape=[1, FPS_N, FPS_NPOINT], latency_floor_ms=floor,
               by_batch={B: dict(ms=t[0], call_ms=t[1]) for B, t in times.items()})
+    return e, launches
+
+
+def chamfer_phase(torch, G, CH, rate):
+    """The chamfer kernel at the classical step's monitor and 8 such pairs
+    against the plain version, then timed (phase 25). Returns (entry,
+    launches)."""
+    src, tar = synthetic_pairs(max(CHAMFER_BATCHES), CHAMFER_N)
+    clouds = torch.tensor(src, device=DEV), torch.tensor(tar, device=DEV)
+    CH.launches.update(kernel=0)
+    times, err = {}, 0.0
+    for B in CHAMFER_BATCHES:
+        x, y = (c[:B].contiguous() for c in clouds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = CH.launches["kernel"]
+        got = CH.nearest(x, y)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        check(CH.launches["kernel"] == before + 1,
+              f"chamfer B={B}: {CH.launches['kernel'] - before} launches in a call")
+        check(extra <= 4 * got.numel() + 512,
+              f"chamfer B={B}: {extra} bytes allocated for {got.numel()} minima")
+        check(torch.equal(got, CH.nearest(x, y)), f"chamfer B={B}: two calls differ")
+        sq = G.square_distance(x, y)
+        plain_minima = torch.cat([sq.amin(2).reshape(-1), sq.amin(1).reshape(-1)])
+        del sq
+        err = max(err, float((got - plain_minima).abs().max()))
+        mean, plain = float(got.mean()), float(G.chamfer_distance_reference(x, y))
+        # each fp32 path leaves its mean up to 1.2e-5 relative off the float64 one
+        check(abs(mean - plain) <= 2e-5 * abs(plain),
+              f"chamfer B={B}: mean {mean!r} against the plain version's {plain!r}")
+        check(err <= 1e-6, f"chamfer B={B}: a minimum {err:.3g} off the plain version's")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"chamfer B={B} M=N={CHAMFER_N}: mean {mean!r}, plain {plain!r}, minima within "
+              f"{err:.3g}, {extra} bytes allocated; split {CH.plan(B, CHAMFER_N, CHAMFER_N, sms)} "
+              f"on {sms} SMs", flush=True)
+        times[B] = dict(
+            ms=kernel_ms(torch, lambda: CH.nearest(x, y), 20, "chamfer_kernel"),
+            call_ms=cuda_ms(torch, lambda: G.chamfer_distance(x, y), 20),
+            plain_ms=cuda_ms(torch, lambda: G.chamfer_distance_reference(x, y), 20),
+            library_ms=kernel_ms(torch, lambda: G.chamfer_distance_reference(x, y), 20),
+            ops=CH.operations(B, CHAMFER_N, CHAMFER_N), nbytes=CH.nbytes(B, CHAMFER_N, CHAMFER_N))
+    launches = CH.launches["kernel"]
+    for B, t in times.items():
+        (mb, mby), (db, dby) = bounds(t["ops"], t["nbytes"], rate)
+        print(f"chamfer B={B}: kernel {t['ms']:.4f} ms, call {t['call_ms']:.4f} ms, bound "
+              f"{mb:.5f} ms by {mby} at the measured rate ({mb / t['ms']:.1%} of it reached), "
+              f"{db:.5f} ms by {dby} at the data sheet's; plain call {t['plain_ms']:.4f} ms, "
+              f"its ATen chain {t['library_ms']:.4f} ms of device time", flush=True)
+    t = times[1]
+    e = entry("chamfer", "a_robust_registration_loss_tpu_torch/csrc/chamfer.cu",
+              "none: XLA, a_robust_registration_loss_tpu/ops/geometry.py:261",
+              err, t["ms"], t["call_ms"], t["plain_ms"], t["ops"], t["nbytes"], rate,
+              library_ms=t["library_ms"], shape=[1, CHAMFER_N, CHAMFER_N],
+              by_batch={B: {k: v for k, v in t.items() if k not in ("ops", "nbytes")}
+                        for B, t in times.items()})
     return e, launches
 
 
@@ -1033,7 +1111,7 @@ def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
     n = WARMUP + TIMED
     check(losses.shape == (n,) and np.isfinite(losses).all(), "a loss is not finite")
     check(valids.all(), "an epoch had no usable line")
-    check_counts(launches, {"stage1_pair_pts": 1, "resample_sample_and_hit": 1}, n,
+    check_counts(launches, {"stage1_pair_pts": 1, "resample_sample_and_hit": 1, "chamfer": 1}, n,
                  "classical path")
     chamfer = [float(G.chamfer_distance(s[None], data["tar"][None]))
                for s in (src_first, carry[2])]
@@ -1663,8 +1741,7 @@ def dcp_path(torch, mods, cfg, model, batches):
             check(json.load(f) == summary, "Eval.json differs from the returned summary")
         objs = [f for f in os.listdir(tmp) if f.endswith(".obj")]
         check(len(objs) == 4 * B3 * BATCHES3, f"{len(objs)} OBJ files written")
-        check_counts(eval_launches, {"resample_batched": 1, "stage1_pair_pts": 1}, BATCHES3,
-                     "DCP evaluate")
+        check_counts(eval_launches, DCP_STEP, BATCHES3, "DCP evaluate")
         check(all(np.isfinite(v) for v in summary.values()), f"a metric is not finite: {summary}")
         check(summary["loss_intersection"] > 0, "no usable line in the evaluation")
         print(f"DCP evaluate: {BATCHES3} batches of B={B3} N={N3} F={F3} L={L3}, "
@@ -1705,8 +1782,7 @@ def dcp_path(torch, mods, cfg, model, batches):
     torch.cuda.synchronize()
     ms_grad = 1e3 * (time.perf_counter() - t0) / (GRAD_ITERS3 - WARMUP2)
     grad_launches = counts(IK, RS, PB)
-    check_counts(grad_launches, {"resample_batched": 1, "stage1_pair_pts": 1}, GRAD_ITERS3,
-                 "DCP forward + gradient")
+    check_counts(grad_launches, DCP_STEP, GRAD_ITERS3, "DCP forward + gradient")
     losses = torch.stack([r[0] for r in results]).cpu().numpy()
     # the cross-covariances the SVD head took, read on one more forward per
     # batch outside the timed and counted iterations
@@ -2010,17 +2086,17 @@ def classical_graph_phase(torch, classical, IK, RS, PB, LN, batched):
     the rates and peak memory of both. Returns the graph run's launches and
     numbers."""
     cfg = classical.ClassicalConfig(n_epochs=GRAPH_EPOCHS, n_lines=N_LINES,
-                                    num_sample=N_FACES, compute_chamfer=False)
+                                    num_sample=N_FACES)
     if batched:
         src, tar = synthetic_pairs(B1, N_CLOUD)
         data = classical.prepare_pairs(src, tar, cfg, device=DEV)
         step = classical.make_batch_step(cfg, data)
-        per, kinds = B1, {"resample_batched": 1, "stage1_pair_pts": 1}
+        per, kinds = B1, {"resample_batched": 1, "stage1_pair_pts": 1, "chamfer": 1}
     else:
         src, tar = synthetic_pair()
         data = classical.prepare_pair(src, tar, cfg, device=DEV)
         step = classical.make_step(cfg, data)
-        per, kinds = 1, {"resample_sample_and_hit": 1, "stage1_pair_pts": 1}
+        per, kinds = 1, {"resample_sample_and_hit": 1, "stage1_pair_pts": 1, "chamfer": 1}
     what = f"classical {'batch (B=' + str(B1) + ')' if batched else 'single'} graph"
 
     def init(gen):
@@ -2082,7 +2158,8 @@ def classical_graph_phase(torch, classical, IK, RS, PB, LN, batched):
           f"({steady / e['its']:.2f} times eager's run); per replay the graph counts "
           f"{graph.counts}", flush=True)
     check(graph.counts == {("stage1", IK.instantiation(*STAGE1["stage1_pair_pts"])): 1,
-                           ("resample", "batched" if batched else "single"): 1},
+                           ("resample", "batched" if batched else "single"): 1,
+                           ("chamfer", "kernel"): 1},
           f"{what}: the graph's launches per replay {graph.counts}")
     state.clear()
     return g["launches"], dict(graph_its=g["its"], graph_steady_its=steady, eager_its=e["its"],
@@ -2305,8 +2382,8 @@ def demo_phase(torch, demo, IK, RS, PB):
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 launches = counts(IK, RS, PB)
-                check_counts(launches, {resampler: 1, "stage1_pair_pts": 1}, DEMO_EPOCHS,
-                             f"demo {kind} {what}")
+                check_counts(launches, {resampler: 1, "stage1_pair_pts": 1, "chamfer": 1},
+                             DEMO_EPOCHS, f"demo {kind} {what}")
                 files = set(os.listdir(out))
                 logged = range(DEMO_LOG_EVERY, DEMO_EPOCHS + 1, DEMO_LOG_EVERY)
                 if what == "single":
@@ -2394,8 +2471,7 @@ def dcp_train_phase(torch, mods, cfg3, batches):
         dt = time.perf_counter() - t0
         launches = counts(IK, RS, PB)
         steps = 2 * len(batches) + 2 * len(tests)  # train steps and eval batches
-        check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1}, steps,
-                     "DCP train")
+        check_counts(launches, DCP_STEP, steps, "DCP train")
         run = os.path.join(tmp, "run")
         print(f"DCP train: 1 pretrain + 2 epochs of {len(batches)} batches, {len(tests)} "
               f"test batches: {dt:.2f} s; epoch seconds (pretrain, then train with eval, "
@@ -2719,12 +2795,11 @@ def fmr_phase(torch, mods, data, tmp):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = counts(IK, RS, PB)
-    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 3}, 2 * steps,
+    check_counts(launches, FMR_STEP, 2 * steps,
                  "FMR train (2 epochs of 12 steps, 12 eval batches each)")
     secs = _epoch_seconds(run)
     FP32_RUNS["fmr"] = dict(args=args + ["--epochs", "2"], hist=hist, secs=secs,
-                            per_step={"resample_batched": 1, "stage1_pair_pts": 3},
-                            steps=2 * steps)
+                            per_step=FMR_STEP, steps=2 * steps)
     print(f"FMR train through train.fmr.main: 2 epochs of {steps} steps of B={B5} N={NP5} "
           f"L={L5} and {len(hist) and 6 * VIEWS5 - TRAIN5} eval pairs at maxiter 10: {dt:.2f} s "
           f"(CLI, data and set-up included); time/epoch_seconds {secs}; train loss "
@@ -2888,10 +2963,9 @@ def dcp_cli_phase(torch, mods, data, tmp):
     dt = time.perf_counter() - t0
     launches = counts(IK, RS, PB)
     FP32_RUNS["dcp"] = dict(args=args + ["--epochs", "1"], hist=hist, secs=_epoch_seconds(run),
-                            per_step={"resample_batched": 1, "stage1_pair_pts": 1},
-                            steps=TRAIN5 // B5 + n_test)
-    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1},
-                 TRAIN5 // B5 + n_test, "DCP CLI train (12 steps, 12 eval batches)")
+                            per_step=DCP_STEP, steps=TRAIN5 // B5 + n_test)
+    check_counts(launches, DCP_STEP, TRAIN5 // B5 + n_test,
+                 "DCP CLI train (12 steps, 12 eval batches)")
     check(all(np.isfinite(v) for v in hist[0].values()), f"a DCP CLI metric: {hist}")
     counts(IK, RS, PB, reset=True)
     t0 = time.perf_counter()
@@ -2899,8 +2973,7 @@ def dcp_cli_phase(torch, mods, data, tmp):
     torch.cuda.synchronize()
     dt_eval = time.perf_counter() - t0
     eval_launches = counts(IK, RS, PB)
-    check_counts(eval_launches, {"resample_batched": 1, "stage1_pair_pts": 1}, n_test,
-                 "DCP CLI --eval_only")
+    check_counts(eval_launches, DCP_STEP, n_test, "DCP CLI --eval_only")
     with open(os.path.join(run, "eval", "Eval.json")) as f:
         check(json.load(f) == summary, "Eval.json differs from the returned summary")
     check(all(np.isfinite(v) for v in summary.values()), f"Eval.json {summary}")
@@ -2935,8 +3008,8 @@ def dcp_cli_phase(torch, mods, data, tmp):
 L_RPM = 10000  # RPM-Net's lines a sample
 RPM_CLI = []  # more flags for RPM-Net's CLI (none: its full-width defaults)
 RPM_STEPS = {  # launches by kind of step: 2 registration iterations in training, 5 in eval
-    "train": {"resample_batched": 1, "stage1_pair_pts": 2, "gather_fwd": 4},
-    "eval": {"gather_fwd": 10},
+    "train": {"resample_batched": 1, "stage1_pair_pts": 2, "gather_fwd": 4, "chamfer": 2},
+    "eval": {"gather_fwd": 10, "chamfer": 1},
     "pretrain": {"gather_fwd": 2},
     "artifact": {"gather_fwd": 10},
 }
@@ -3793,9 +3866,7 @@ SHARD_UPDATE = 0.25  # the update of 2 steps, relative L2 to one process's
 SHARD_GRAD2 = 5e-3  # the second step's gradient, relative L2 (its second moment: twice)
 SHARD_CLI = (2, 2)  # DCP's CLI: 4 ranks on the one card
 SHARD_STEP = {  # a training step's launches on each rank, whatever the mesh
-    "dcp": {"resample_batched": 1, "stage1_pair_pts": 1},
-    "fmr": {"resample_batched": 1, "stage1_pair_pts": 3},
-    "rpm": RPM_STEPS["train"]}
+    "dcp": DCP_STEP, "fmr": FMR_STEP, "rpm": RPM_STEPS["train"]}
 
 
 def shard_config(name):
@@ -4257,6 +4328,7 @@ def main():
     from a_robust_registration_loss_tpu_torch.ops import lines as LN
     from a_robust_registration_loss_tpu_torch.ops import metric as M
     from a_robust_registration_loss_tpu_torch.ops.cuda import _build
+    from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer as CH
     from a_robust_registration_loss_tpu_torch.ops.cuda import fps as FK
     from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
     from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
@@ -4287,9 +4359,9 @@ def main():
                                           mods3, data5)
     probe, rate, probe_launches = timed(seconds, "probe", probe_phase, torch, PB)
     fps, fps_launches = timed(seconds, "fps", fps_phase, torch, G, FK, rate)
+    chamfer, chamfer_launches = timed(seconds, "chamfer", chamfer_phase, torch, G, CH, rate)
 
-    cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES,
-                                    compute_chamfer=False)
+    cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES)
     v1, v2 = synthetic_pair()
     t0 = time.perf_counter()
     FK.launches = 0
@@ -4332,7 +4404,7 @@ def main():
               m["err"], m["ms"], m["call_ms"], m["plain_ms"], m["ops"], m["nbytes"], rate,
               shape=m["shape"])
         for name, m in modes.items() if name != "stage1_pair_pts"] + [
-            resample, resample_batched, probe, fps]
+            resample, resample_batched, probe, fps, chamfer]
     p2 = modes["stage1_pair_pts"]
     (mb, _), (db, _) = bounds(p2["ops"], p2["nbytes"], rate)
     pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"],
@@ -4412,6 +4484,7 @@ def main():
     print("bf16 against fp32 on the card, the same weights and batches (NVIDIA card above): "
           + json.dumps({name: numbers for name, (_, numbers) in bf16.items()}), flush=True)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "fps": {"fps": fps_launches},
+             "chamfer": {"chamfer": chamfer_launches},
              "prepare_pair": {"fps": 2}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,

@@ -60,7 +60,19 @@ kernel equal to the plain loop on the card bit for bit, one launch a call,
 at B of 1, 2 and 8, clouds held on chip and streamed, every pick count from
 1 to N + 3, from index 0 and from given (also negative) starts, on lattice
 and duplicated points (exact ties), NaN coordinates, the classical cells'
-clouds and ``sample_neighs``.
+clouds and ``sample_neighs``; and the chamfer kernel at the callers'
+shapes, (1, 8,192, 8,192), (4, 1,024, 1,024), (16, 717, 717), a ragged
+(3, 1,000, 2,500), (32, 1,024, 1,024), (8, 8,192, 8,192) and (128, 1,024,
+1,024) (one or four queries a thread, with and without a cluster split),
+each point's minimum within 1e-6 of a float64 evaluation of the same
+expansion on unit-scale clouds (fp32 rounding of terms up to about 2), in
+both layouts, the mean within 2e-5 relative of the plain
+matrix-and-amin version on the card and of the float64 mean (cuBLAS sums
+the dot in an order of its own: each path's rounding leaves its mean up
+to 1.2e-5 relative off the float64 one), one launch a call, two calls equal bit for
+bit, NaN where the plain version has NaN, near-coincident points whose
+expansion goes negative, one launch an epoch through the classical step's
+graph, and a raise on an input that requires grad while grad mode is on.
 """
 
 import numpy as np
@@ -71,6 +83,7 @@ from a_robust_registration_loss_tpu_torch.ops import geometry as G
 from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops import metric as M
 from a_robust_registration_loss_tpu_torch.models import dcp as D
+from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer as CH
 from a_robust_registration_loss_tpu_torch.ops.cuda import fps as FK
 from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
@@ -552,6 +565,106 @@ def test_fps_raises_on_cuda_input_it_cannot_take(cuda_device):
             FK.farthest_point_sample(bad, 8)
     with pytest.raises(ValueError):
         FK.farthest_point_sample(x, 8, torch.zeros(3, dtype=torch.long, device=cuda_device))
+
+
+# the split on 132 SMs: 4, 8, 4, 8, then none at DCP's batch-32 monitor, at 8
+# of the classical step's pairs and at 128 small pairs
+CHAMFER_SHAPES = [(1, 8192, 8192), (4, 1024, 1024), (16, 717, 717), (3, 1000, 2500),
+                  (32, 1024, 1024), (8, 8192, 8192), (128, 1024, 1024)]
+
+
+def _chamfer_clouds(B, M, N, seed, device):
+    """Noisy Fibonacci ellipsoids, within about the unit ball: (B, M, 3), (B, N, 3)."""
+    x = np.stack([_cloud(M, seed + 2 * b) for b in range(B)])
+    y = np.stack([_cloud(N, seed + 2 * b + 1) for b in range(B)])
+    return torch.tensor(x, device=device), torch.tensor(y, device=device)
+
+
+def _chamfer_f64(x, y):
+    """Both directions' minima of the plain version's expansion in float64,
+    (B, M + N): each row x's minima, then y's."""
+    x64, y64 = x.double(), y.double()
+    d = ((-2.0 * (x64 @ y64.transpose(-1, -2)) + (x64**2).sum(-1)[..., :, None])
+         + (y64**2).sum(-1)[..., None, :])
+    return torch.cat([d.amin(2), d.amin(1)], -1)
+
+
+def _flat(rows, M):
+    """(B, M + N) rows -> the batch layout: every x minimum, then every y minimum."""
+    return torch.cat([rows[:, :M].reshape(-1), rows[:, M:].reshape(-1)])
+
+
+def _nearest_once(x, y, per_sample):
+    """The kernel's minima, counting one launch."""
+    before = CH.launches["kernel"]
+    got = CH.nearest(x, y, per_sample)
+    assert CH.launches == {"kernel": before + 1}
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sample", [False, True], ids=["batch", "per_sample"])
+@pytest.mark.parametrize("shape", CHAMFER_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_chamfer_kernel_against_float64_and_the_plain_path(cuda_device, shape, per_sample):
+    B, M, N = shape
+    x, y = _chamfer_clouds(B, M, N, sum(shape), cuda_device)
+    want = _chamfer_f64(x, y)
+    got = _nearest_once(x, y, per_sample)
+    assert got.shape == ((B, M + N) if per_sample else (B * (M + N),))
+    assert float((got.double() - (want if per_sample else _flat(want, M))).abs().max()) <= 1e-6
+    assert torch.equal(got, _nearest_once(x, y, per_sample))
+    before = CH.launches["kernel"]
+    mean = G.chamfer_distance(x, y, per_sample=per_sample)
+    assert CH.launches == {"kernel": before + 1}
+    plain = G.chamfer_distance_reference(x, y, per_sample=per_sample)
+    truth = want.mean(-1) if per_sample else want.mean()
+    assert mean.shape == plain.shape and mean.dtype == plain.dtype
+    # each fp32 path's rounding leaves its mean up to 1.2e-5 relative off the
+    # float64 mean (the plain path at 717 points; the kernel 7e-6)
+    for other in (plain.double(), truth):
+        assert float(((mean.double() - other) / other).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_chamfer_kernel_on_near_coincident_and_nan_points(cuda_device):
+    # y is x moved by a few ulps: each true minimum is ~1e-13, and the
+    # expansion's rounding takes many below 0; coincident copies give 0
+    x = torch.tensor(np.stack([_cloud(3000, 5), _cloud(3000, 6)]), device=cuda_device)
+    y = x * (1 + 2e-7)
+    got = _nearest_once(x, y, True)
+    assert bool((got < 0).any())
+    assert float((got.double() - _chamfer_f64(x, y)).abs().max()) <= 1e-6
+    assert float(_nearest_once(x, x.clone(), True).abs().max()) <= 1e-6
+    # a NaN coordinate: its own row's minimum and every minimum of the other
+    # cloud in that pair are NaN, as torch.amin gives them
+    x[1, 17, 2] = float("nan")
+    got = _nearest_once(x, y, True)
+    sq = G.square_distance(x, y)
+    want = torch.cat([sq.amin(2), sq.amin(1)], -1)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == 3001
+
+
+@pytest.mark.cuda
+def test_chamfer_refuses_what_the_kernel_cannot_take(cuda_device):
+    x = torch.rand((2, 64, 3), device=cuda_device)
+    bad = [(x.to(torch.bfloat16), x), (x, x.double()), (x[..., :2], x), (x[0], x[0]),
+           (x, x[:1]), (x[:, :0], x), (x, x.cpu())]
+    for a, b in bad:
+        with pytest.raises(ValueError):
+            G.chamfer_distance(a, b)
+    # no backward: an input that requires grad raises while grad mode is on
+    w = x.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="backward"):
+        G.chamfer_distance(w, x)
+    with pytest.raises(ValueError, match="backward"):
+        G.chamfer_distance(x, w, per_sample=True)
+    with torch.no_grad():
+        a = G.chamfer_distance(w, x)
+    assert torch.equal(a, G.chamfer_distance(w.detach(), x))
+    # a view that is not contiguous is copied first
+    t = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(G.chamfer_distance(t, x), G.chamfer_distance(x, x))
 
 
 @pytest.mark.cuda
@@ -1041,10 +1154,11 @@ def _classical_runs(device, n_epochs, modes):
         params = TC.init_twist(g)
         IK.launches.clear()
         RS.launches.clear()
+        CH.launches.update(kernel=0)
         carry, hist = TC._loop(cfg, TC.make_step(cfg, data), params, data["src"], g, None,
                                mode=mode)
         torch.cuda.synchronize()
-        out[mode] = carry, hist, (dict(IK.launches), dict(RS.launches))
+        out[mode] = carry, hist, (dict(IK.launches), dict(RS.launches), dict(CH.launches))
     return out
 
 
@@ -1064,14 +1178,14 @@ def test_classical_graph_replay_equals_the_eager_step(cuda_device):
 
 @pytest.mark.cuda
 def test_graph_launch_counters_count_per_replay(cuda_device):
-    """A graph's run counts one stage-1 and one resampler launch an epoch,
-    as the eager loop does: the capture's count is taken back, each replay
-    adds it."""
+    """A graph's run counts one stage-1, one resampler and one chamfer launch
+    an epoch, as the eager loop does: the capture's count is taken back,
+    each replay adds it."""
     from a_robust_registration_loss_tpu_torch.train import graphs
 
     runs = _classical_runs(cuda_device, 7, ("eager", "graph"))
     pts = IK.instantiation(2, False, False, True)
-    want = ({pts: 7}, {"single": 7})
+    want = ({pts: 7}, {"single": 7}, {"kernel": 7})
     assert runs["eager"][2] == want and runs["graph"][2] == want
     x = torch.zeros(4, device=cuda_device)
     IK.launches.clear()
