@@ -48,13 +48,6 @@
 //   which holds while a thread takes at most 85 registers), and at B = 4 x
 //   150,000 the 1,172 blocks are handed out as earlier ones finish, so no
 //   wave leaves SMs idle for long.
-// - The round budget's fallback launch (ops/lines.py, fast_rounds < rounds)
-//   passes skip, a byte a sample: a block of a sample whose flag is set
-//   writes ok = 0 over its tile and returns before it loads a face or draws
-//   a line, leaving that sample's cand unwritten. The flags are computed on
-//   the device from the fast launch's ok, so no host read decides the
-//   branch and a CUDA graph replays either one. A null skip is the plain
-//   launch.
 // Outputs: cand (B, C, 6) [direction | origin] and ok (B, C) as bytes 0/1.
 #include <cuda_runtime.h>
 
@@ -141,8 +134,7 @@ __device__ __forceinline__ bool survivor_hit(const float4* fv, const float (*sur
 __global__ void __launch_bounds__(kThreads)
 resample_kernel(const float* __restrict__ u4, int C,
                 const float* __restrict__ params,
-                const float* __restrict__ fv_prep,
-                const unsigned char* __restrict__ skip, float* __restrict__ cand,
+                const float* __restrict__ fv_prep, float* __restrict__ cand,
                 unsigned char* __restrict__ ok) {
   __shared__ float4 fv[kFaces * kFaceWords / 4];
   __shared__ float surv[6][kTile];  // the lines that hit mesh 2, by component
@@ -156,10 +148,6 @@ resample_kernel(const float* __restrict__ u4, int C,
   ok += b * C;
   const int tid = threadIdx.x, lane = tid & 31;
   const int base = blockIdx.x * kTile;
-  if (skip != nullptr && skip[b]) {  // uniform over the block: no barrier passed
-    for (int col = base + tid; col < min(base + kTile, C); col += kThreads) ok[col] = 0;
-    return;
-  }
   float* fvw = reinterpret_cast<float*>(fv);
   for (int k = tid; k < kFaces * kFaceWords; k += kThreads) fvw[k] = fv_prep[k];
   if (tid == 0) n_surv = 0;
@@ -236,15 +224,13 @@ resample_kernel(const float* __restrict__ u4, int C,
 }  // namespace
 
 // u4 (B, 4, C); params (B, 4) rows [r, cx, cy, cz]; fv_prep (B, 24, 16);
-// skip (B,) bytes or null; outputs cand (B, C, 6) and ok (B, C) bytes. All
-// contiguous on the device; B <= 65535. Returns cudaGetLastError() after
-// the launch.
+// outputs cand (B, C, 6) and ok (B, C) bytes. All contiguous on the device;
+// B <= 65535. Returns cudaGetLastError() after the launch.
 extern "C" int arrl_resample(const float* u4, int B, int C,
                              const float* params, const float* fv_prep,
-                             const unsigned char* skip, float* cand,
-                             unsigned char* ok, void* stream) {
+                             float* cand, unsigned char* ok, void* stream) {
   const dim3 grid((C + kTile - 1) / kTile, B);
   resample_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u4, C, params, fv_prep, skip, cand, ok);
+      u4, C, params, fv_prep, cand, ok);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,18 @@ whether an existing library is reused.
 No ``--use_fast_math`` and ``-fmad=false``: the kernels need IEEE fp32
 with every multiply and add rounded on its own (see the notes in the
 sources).
+
+Launch counts: each wrapper's ``launches`` is a ``collections.Counter``
+made by ``launch_counter`` and kept in ``COUNTERS`` under the wrapper's
+name, so code that must see every kernel's count (``train/graphs.py``
+takes back what a CUDA graph's capture counted) reads the registry and
+not a list of wrappers. A wrapper counts a launch when its Python launches
+the kernel; plain runs are not counted.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -38,7 +46,7 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "arrl_stage1": [_I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                     _P, _P, _P, _P, _P, _P],
-    "arrl_resample": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "arrl_resample": [_P, _I, _I, _P, _P, _P, _P, _P],
     "arrl_gather_fwd": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
     "arrl_gather_sort": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "arrl_gather_segsum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -49,6 +57,13 @@ SIGNATURES = {
 
 _lib = None
 build_log = ""  # nvcc's output of the last build in this process
+COUNTERS: dict[str, collections.Counter] = {}  # kernel launch counters by wrapper
+
+
+def launch_counter(name: str) -> collections.Counter:
+    """A new launch counter, registered in ``COUNTERS`` under ``name``."""
+    COUNTERS[name] = collections.Counter()
+    return COUNTERS[name]
 
 
 def _sources():

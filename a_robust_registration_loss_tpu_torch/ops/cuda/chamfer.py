@@ -34,9 +34,7 @@ THREADS = 256        # a block's threads, its queries, and the points of a share
 MAX_SPLIT = 8        # blocks of a cluster over the other cloud, fixed in the .cu
 OPS_PER_PAIR = 8     # 3 multiplies, 4 adds, the minimum
 
-# kernel launches since the last reset (plain runs not counted); a CUDA
-# graph adds its captured count on every replay
-launches = {"kernel": 0}
+launches = _build.launch_counter("chamfer")  # key "kernel"
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -31,7 +31,7 @@ from a_robust_registration_loss_tpu_torch.ops.cuda import _build
 ON_CHIP_POINTS = 8192  # 1,024 threads x 8 points, fixed in the .cu
 OPS_PER_UPDATE = 10    # 3 subtractions, 3 squares, 2 adds, the minimum, the argmax's compare
 
-launches = 0  # kernel launches since the last reset (plain runs not counted)
+launches = _build.launch_counter("fps")  # key "kernel"
 
 
 def _start(xyz, start_idx):
@@ -48,7 +48,6 @@ def _start(xyz, start_idx):
 
 def farthest_point_sample(xyz, npoint: int, start_idx=None):
     """xyz (B, N, 3) -> (B, npoint) int64 indices; see the module's note."""
-    global launches
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"farthest_point_sample: xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     if npoint < 0:
@@ -74,7 +73,7 @@ def farthest_point_sample(xyz, npoint: int, start_idx=None):
         None if minima is None else minima.data_ptr(), B, N, npoint,
         torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(rc, "arrl_fps")
-    launches += 1
+    launches["kernel"] += 1
     return out
 
 

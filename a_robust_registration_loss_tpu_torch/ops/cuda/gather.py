@@ -49,10 +49,10 @@ import torch
 
 from a_robust_registration_loss_tpu_torch.ops.cuda import _build
 
-# wrapper calls that launched since the last reset: the forward (one kernel a
-# call) and the backward's two stages, the sort (two kernels a call) and the
-# sum (one); a backward is one call of each
-launches = {"fwd": 0, "bwd_sort": 0, "bwd_sum": 0}
+# wrapper calls that launched: the forward (one kernel a call) and the
+# backward's two stages, the sort (two kernels a call) and the sum (one); a
+# backward is one call of each
+launches = _build.launch_counter("gather")
 BWD_KERNELS = 3  # kernels a backward launches
 SORT_SHARED_INTS = (227 * 1024 - 256) // 4  # a block's shared memory, less the static part
 SORT_MAX_WARPS = 16

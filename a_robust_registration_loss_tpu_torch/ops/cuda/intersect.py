@@ -38,7 +38,6 @@ an O(L*F) tensor at full size either, and makes one PyTorch op per rounding.
 Launch counter: ``launches`` counts the kernel launches of each
 instantiation, keyed by ``instantiation(clouds, emit_d2, emit_recon,
 emit_pts)``, so that the counts of all keys add up to the launches made.
-Plain runs are not counted.
 
 Bound on the H100: fp32 operations, 48 per (line, neighbourhood) pair
 (``OPS_PER_PAIR``) plus 33 per stored slot in recon mode
@@ -47,8 +46,6 @@ reports the bound beside the measured time.
 """
 
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -64,8 +61,7 @@ EMPTY = 2**30           # slot_idx of an empty slot in the intersect_stage1* API
 SEGMENTS = 4            # face segments the kernel splits a cloud into
 STEP_FACES = 256        # faces of all segments the kernel sweeps between two barriers
 
-# kernel launches by instantiation since the last reset (plain runs not counted)
-launches: collections.Counter = collections.Counter()
+launches = _build.launch_counter("stage1")
 
 
 def instantiation(clouds: int, emit_d2: bool, emit_recon: bool, emit_pts: bool):

@@ -28,7 +28,7 @@ CHAINS = 4          # independent values per element, fixed in the .cu
 OPS_PER_STEP = 3    # r * x, 1 - x, and their product
 N, ITERS, REPS = 8 * 128 * 1024, 512, 10  # the measurement: bench.py's shape
 
-launches = 0  # kernel launches since the last reset (plain runs not counted)
+launches = _build.launch_counter("probe")  # key "kernel"
 
 
 def logistic_map_reference(x, iters: int):
@@ -48,7 +48,6 @@ def logistic_map(x, iters: int):
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (or raises)."""
-    global launches
     if x.device.type == "cpu":
         return logistic_map_reference(x, iters)
     if x.device.type != "cuda":
@@ -63,7 +62,7 @@ def logistic_map(x, iters: int):
         x.data_ptr(), out.data_ptr(), x.shape[0], iters,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "arrl_logistic")
-    launches += 1
+    launches["kernel"] += 1
     return out
 
 

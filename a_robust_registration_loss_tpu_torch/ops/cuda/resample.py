@@ -29,7 +29,6 @@ earlier kernels were measured against.
 
 from __future__ import annotations
 
-import collections
 import math
 
 import torch
@@ -41,10 +40,7 @@ from a_robust_registration_loss_tpu_torch.ops.cuda import _build
 NF = 12  # faces per AABB mesh
 OPS_PER_CANDIDATE = 2 * NF * 81 + 46  # fp32 operations, counted in the .cu
 
-# kernel launches since the last reset, by "single" or "batched" (the call
-# carried a batch axis), a launch with ``skip`` included; plain runs are not
-# counted
-launches: collections.Counter = collections.Counter()
+launches = _build.launch_counter("resample")  # by "single" or "batched" (a batch axis)
 
 
 def sphere_points(u_alpha, u_u, r):
@@ -134,33 +130,25 @@ def ops_needed(n_candidates: int, hits2: int) -> int:
     return n_candidates * (46 + NF * 81) + hits2 * NF * 81
 
 
-def sample_and_hit_reference(u4, r, center, fv_prep, skip=None):
+def sample_and_hit_reference(u4, r, center, fv_prep):
     """Plain PyTorch version of the kernel: (cand (..., C, 6), ok (..., C)
-    bool), with or without a leading batch axis on every argument; ``skip``
-    (bool, the leading batch shape) makes a sample's ok all False."""
+    bool), with or without a leading batch axis on every argument."""
     cand = sample_candidates(u4, r, center)
     ok = (_mesh_hit(fv_prep[..., :NF, :], cand)
           & _mesh_hit(fv_prep[..., NF:, :], cand))
-    if skip is not None:
-        ok = ok & ~skip[..., None]
     return cand, ok
 
 
-def sample_and_hit(u4, r, center, fv_prep, skip=None):
+def sample_and_hit(u4, r, center, fv_prep):
     """u4 (4, C) uniforms, r and center (3,) the sampling sphere, fv_prep
     (24, 16) from ``prep_faces`` -> (cand (C, 6), ok (C,) bool); or, with a
     leading batch axis, u4 (B, 4, C), r (B,), center (B, 3), fv_prep
     (B, 24, 16) -> (cand (B, C, 6), ok (B, C)) in one launch.
 
-    ``skip``, a bool tensor of the leading batch shape (() or (B,)) on u4's
-    device, or None: a sample whose flag is set draws nothing, its ok is
-    all False and its cand is left unwritten (the round budget's fallback
-    launch, ``ops/lines.py``).
-
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (or raises)."""
     if u4.device.type == "cpu":
-        return sample_and_hit_reference(u4, r, center, fv_prep, skip)
+        return sample_and_hit_reference(u4, r, center, fv_prep)
     if u4.device.type != "cuda":
         raise ValueError(f"sample_and_hit: unsupported device {u4.device}")
     dev = u4.device
@@ -177,10 +165,6 @@ def sample_and_hit(u4, r, center, fv_prep, skip=None):
     for name, x in (("u4", u4), ("fv_prep", fv_prep), ("center", center)):
         if x.dtype != torch.float32 or x.device != dev:
             raise ValueError(f"sample_and_hit: {name} must be float32 on {dev}")
-    if skip is not None and (skip.dtype != torch.bool or tuple(skip.shape) != lead
-                             or skip.device != dev):
-        raise ValueError(f"sample_and_hit: skip must be bool {lead} on {dev}, got "
-                         f"{skip.dtype} {tuple(skip.shape)} on {skip.device}")
     B, C = (lead[0] if lead else 1), u4.shape[-1]
     if B > 65535:
         raise ValueError(f"sample_and_hit: batch {B} beyond the grid's 65535")
@@ -192,10 +176,9 @@ def sample_and_hit(u4, r, center, fv_prep, skip=None):
     if B * C == 0:
         return cand, ok.view(torch.bool)
     lib = _build.library()
-    skip = None if skip is None else skip.contiguous().view(torch.uint8)
     rc = lib.arrl_resample(u4.data_ptr(), B, C, params.data_ptr(), fv_prep.data_ptr(),
-                           None if skip is None else skip.data_ptr(), cand.data_ptr(),
-                           ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                           cand.data_ptr(), ok.data_ptr(),
+                           torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "arrl_resample")
     launches["batched" if lead else "single"] += 1
     return cand, ok.view(torch.bool)

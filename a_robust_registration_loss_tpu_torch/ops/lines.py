@@ -11,13 +11,6 @@ The uniforms come in as a ``(4, ROUNDS * n)`` tensor: the production loop
 draws them from a ``torch.Generator``, and a test can hand in the JAX
 draw. The candidate stage is the kernel of ``ops/cuda/resample.py`` on a
 CUDA tensor and its plain version on a CPU tensor.
-
-The JAX package's round budget (``fast_rounds < rounds``: a fast stream of
-``fast_rounds * n`` candidates, and a fresh stream of ``rounds * n`` where
-the fast one keeps fewer than n, its ``lax.cond``) is decided on the
-device, sample by sample: the fallback launch skips the samples whose fast
-stream sufficed and a select picks each sample's fill. Nothing reads the
-host, so a CUDA graph of the call replays either branch.
 """
 
 from __future__ import annotations
@@ -68,43 +61,19 @@ def _fill_first_n_gather(cand, ok, n: int):
     return out[..., :n, :]
 
 
-def resample_lines(u4, r, center, n: int, vertices1, vertices2, rounds: int = ROUNDS,
-                   fast_rounds: int = ROUNDS, u4_full=None):
+def resample_lines(u4, r, center, n: int, vertices1, vertices2):
     """Rejection resampling of n lines hitting both clouds' AABB meshes.
 
-    u4 (4, rounds * n) uniforms; r, center the sampling sphere; vertices1/2
+    u4 (4, ROUNDS * n) uniforms; r, center the sampling sphere; vertices1/2
     (N, 3). Returns (n, 6). With a leading batch axis on every argument
-    (u4 (B, 4, rounds * n), r (B,), center (B, 3), vertices (B, N, 3)):
-    (B, n, 6), from one launch of the candidate kernel.
-
-    With ``fast_rounds < rounds`` (the JAX package's round budget), u4 is
-    the fast stream, (..., 4, fast_rounds * n), and ``u4_full`` the
-    fallback stream, (..., 4, rounds * n): the JAX draws from ``k_fast``
-    and ``k_full``. A sample keeps the first n accepted candidates of its
-    fast stream when there are n, else those of its fallback stream
-    (zero-filled tail). Two launches; the second skips the samples whose
-    fast stream sufficed."""
-    budget = fast_rounds < rounds
-    want = (fast_rounds if budget else rounds) * n
-    if u4.shape[-1] != want:
+    (u4 (B, 4, ROUNDS * n), r (B,), center (B, 3), vertices (B, N, 3)):
+    (B, n, 6), from one launch of the candidate kernel."""
+    if u4.shape[-1] != ROUNDS * n:
         raise ValueError(f"resample_lines: u4 has {u4.shape[-1]} candidates, want "
-                         f"{want} for n={n}, rounds={rounds}, fast_rounds={fast_rounds}")
-    if budget and (u4_full is None
-                   or tuple(u4_full.shape) != (*u4.shape[:-1], rounds * n)):
-        raise ValueError(f"resample_lines: u4_full must be {(*u4.shape[:-1], rounds * n)} "
-                         f"for fast_rounds < rounds, got "
-                         f"{None if u4_full is None else tuple(u4_full.shape)}")
-    if not budget and u4_full is not None:
-        raise ValueError("resample_lines: u4_full is the fallback stream of "
-                         "fast_rounds < rounds")
+                         f"{ROUNDS * n} for n={n}")
     batched = u4.dim() == 3
     v1, v2 = (v if batched else v[None] for v in (vertices1, vertices2))
     fv = RS.prep_faces(G.bbox_face_vertices(v1), G.bbox_face_vertices(v2))
     fv = fv if batched else fv[0]
     cand, ok = RS.sample_and_hit(u4, r, center, fv)
-    lines = _fill_first_n_gather(cand, ok, n)
-    if not budget:
-        return lines
-    enough = ok.sum(-1) >= n  # the JAX cond's jnp.sum(ok) >= n, left on the device
-    cand, ok = RS.sample_and_hit(u4_full, r, center, fv, skip=enough)
-    return torch.where(enough[..., None, None], lines, _fill_first_n_gather(cand, ok, n))
+    return _fill_first_n_gather(cand, ok, n)

@@ -35,8 +35,8 @@ run's own state (it loads the kernel library, builds the cuBLAS handles
 and advances the run as every later step does), then capture. A capture
 runs no kernel, so it changes no state.
 
-Launch counts: the kernel wrappers (``ops/cuda/{intersect,resample,
-gather,chamfer}.py``) count a launch when their Python runs, which for a
+Launch counts: the kernel wrappers' counters (``ops/cuda/_build.py``
+``COUNTERS``) count a launch when the wrapper's Python runs, which for a
 graph is once, at capture. Each graph takes back what its capture counted,
 keeps it as its per-replay counts (``counts``) and adds them on every
 replay, so the counters read as they would after the same steps run
@@ -54,38 +54,31 @@ import gc
 import torch
 from torch.utils import _pytree
 
-from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer as CH
-from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GA
-from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
-from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
-
-_COUNTERS = (("stage1", IK.launches), ("resample", RS.launches), ("gather", GA.launches),
-             ("chamfer", CH.launches))
+from a_robust_registration_loss_tpu_torch.ops.cuda._build import COUNTERS
 
 
 def _snapshot():
-    return {name: dict(c) for name, c in _COUNTERS}
+    return {name: c.copy() for name, c in COUNTERS.items()}
 
 
 def _take_back(before):
     """Restore the counters to ``before``; return what was counted since,
     {(counter, key): n} without zeros."""
     out = {}
-    for name, c in _COUNTERS:
-        for key in set(c) | set(before[name]):
-            n = c.get(key, 0) - before[name].get(key, 0)
+    for name, c in COUNTERS.items():
+        was = before.get(name, {})  # registered during the capture (a wrapper imported lazily)
+        for key in set(c) | set(was):
+            n = c[key] - was.get(key, 0)
             if n:
                 out[(name, key)] = n
         c.clear()
-        c.update(before[name])
+        c.update(was)
     return out
 
 
 def _add(counts):
-    for name, c in _COUNTERS:
-        for (which, key), n in counts.items():
-            if which == name:
-                c[key] = c.get(key, 0) + n
+    for (name, key), n in counts.items():
+        COUNTERS[name][key] += n
 
 
 def _require_cuda(tensors, what):

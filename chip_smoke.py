@@ -294,24 +294,6 @@ Phases:
    kernels each captured piece replays. Phases 15 to 18 train from the
    ``DeviceCache`` and so through the same graphs (phase 17's launch checks
    by kind of step count each scanned step);
-23. (run after phase 8) the resampler's round budget
-   (``resample_budget_phase``: ``resample_lines`` with ``rounds`` = 10 and
-   ``fast_rounds`` = 3, the fast and the fallback stream drawn on the
-   card): the classical pair at n = 20,000, at its own radius (the fast
-   stream falls short) and at a tenth of it (a sphere inside both boxes:
-   it suffices), then B = 4 samples of DCP's first batch at n = 15,000,
-   two at each (``BUDGET_PAIRS``), driven with the counters at 0 (2
-   launches a call), each
-   input's fast-stream acceptance and branch printed; both branches must
-   occur where the radii put them. Each launch against its plain version
-   (ok bit for bit, cand bit for bit in every sample not skipped), the
-   lines against the same code on the plain version bit for bit; each
-   launch's device time, a fully skipped second launch's too, with its
-   bound, and the budgeted call beside the one-stream call (CUDA events).
-   A CUDA graph of the unbatched call captured on each radius's inputs and
-   replayed on both (the inputs copied into its static buffers), each
-   replay equal to the eager call bit for bit, under a profile that fails
-   on a host copy or wait, as does a profile of the eager call;
 24. (run after phase 3) farthest-point sampling (``fps_phase``,
    ``csrc/fps.cu``) at the classical cells' sizes: the kernel's indices
    equal to the plain loop's on the card bit for bit at N = 8,192 and 5,000
@@ -556,15 +538,12 @@ def counts(IK, RS, PB, reset=False):
     from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
 
     if reset:
-        IK.launches.clear()
-        RS.launches.clear()
-        PB.launches = 0
-        GK.launches.update(fwd=0, bwd_sort=0, bwd_sum=0)
-        CH.launches.update(kernel=0)
+        for c in (IK.launches, RS.launches, PB.launches, GK.launches, CH.launches):
+            c.clear()
     out = {name: IK.launches[IK.instantiation(*key)] for name, key in STAGE1.items()}
     out["stage1_other"] = sum(IK.launches.values()) - sum(out.values())
     out.update(resample_sample_and_hit=RS.launches["single"],
-               resample_batched=RS.launches["batched"], probe_fp32_rate=PB.launches,
+               resample_batched=RS.launches["batched"], probe_fp32_rate=PB.launches["kernel"],
                gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd_sum"],
                chamfer=CH.launches["kernel"])
     check(GK.launches["bwd_sort"] == GK.launches["bwd_sum"],
@@ -594,9 +573,9 @@ def probe_phase(torch, PB):
     print("probe: logistic map equals its plain version bit for bit "
           f"({PB.CHAINS} chains, 2 x {PB.UNROLL} steps)", flush=True)
     n, iters = PB.N, PB.ITERS
-    PB.launches = 0
+    PB.launches.clear()
     rate, ms = PB.measured_fp32_rate(DEV)
-    launches = PB.launches
+    launches = PB.launches["kernel"]
     x = torch.ones(n, device=DEV)
     plain = cuda_ms(torch, lambda: PB.logistic_map_reference(x, iters), 1, warmup=0)
     ops = PB.operations(n, iters)
@@ -614,13 +593,14 @@ def fps_phase(torch, G, FK, rate):
     plain loop, then timed (phase 24). Returns (entry, launches)."""
     src, _ = synthetic_pairs(max(FPS_BATCHES), FPS_N)
     clouds = torch.tensor(src, device=DEV)
-    FK.launches = 0
+    FK.launches.clear()
     times = {}
     for B in FPS_BATCHES:
         xyz = clouds[:B]
-        before = FK.launches
+        before = FK.launches["kernel"]
         got = FK.farthest_point_sample(xyz, FPS_NPOINT)
-        check(FK.launches == before + 1, f"fps B={B}: {FK.launches - before} launches in a call")
+        check(FK.launches["kernel"] == before + 1,
+              f"fps B={B}: {FK.launches['kernel'] - before} launches in a call")
         want = G.farthest_point_sample_reference(xyz, FPS_NPOINT)
         check(torch.equal(got, want), f"fps B={B}: the kernel's indices differ from the plain loop's")
         print(f"fps B={B} N={FPS_N} npoint={FPS_NPOINT}: equal to the plain loop bit for bit",
@@ -634,7 +614,7 @@ def fps_phase(torch, G, FK, rate):
     floor = kernel_ms(torch, lambda: FK.farthest_point_sample(one, FPS_NPOINT), 10, "fps_kernel")
     plain = cuda_ms(torch, lambda: G.farthest_point_sample_reference(clouds[:1], FPS_NPOINT), 1,
                     warmup=0)
-    launches = FK.launches
+    launches = FK.launches["kernel"]
     ops, nbytes = FK.operations(1, FPS_N, FPS_NPOINT), FK.nbytes(1, FPS_N, FPS_NPOINT)
     (mb, mby), (db, dby) = bounds(ops, nbytes, rate)
     for B, (ms, call_ms) in times.items():
@@ -657,7 +637,7 @@ def chamfer_phase(torch, G, CH, rate):
     launches)."""
     src, tar = synthetic_pairs(max(CHAMFER_BATCHES), CHAMFER_N)
     clouds = torch.tensor(src, device=DEV), torch.tensor(tar, device=DEV)
-    CH.launches.update(kernel=0)
+    CH.launches.clear()
     times, err = {}, 0.0
     for B in CHAMFER_BATCHES:
         x, y = (c[:B].contiguous() for c in clouds)
@@ -1443,223 +1423,6 @@ def resample_batch_phase(torch, G, RS, batch, rate):
           f"accepted {acc / n:.5f}", flush=True)
     return resample_entry(torch, RS, "resample_batched", u4, r, c, fv, rate, 20, checked,
                           shape=f"B={B3} C={C}")
-
-
-BUDGET_ROUNDS, BUDGET_FAST = 10, 3  # the round budget's rounds and fast_rounds
-BUDGET_TIGHT = 0.1  # the tight radius over the box diagonal: a sphere inside both boxes
-BUDGET_PAIRS = (0, 0, 2, 3)  # the batched budget's samples: pairs of DCP's first batch
-BUDGET_REPS, BUDGET_PROFILED = 20, 6
-
-
-def budget_call(LN, RS, u_fast, u_full, r, c, n, v1, v2, plain=False):
-    """``resample_lines`` under the round budget; with ``plain``, the same
-    code on the candidate stage's plain version (on the card)."""
-    real = RS.sample_and_hit
-    if plain:
-        RS.sample_and_hit = lambda u4, r_, c_, fv, skip=None: RS.sample_and_hit_reference(
-            u4, r_, c_, fv, skip)
-    try:
-        return LN.resample_lines(u_fast, r, c, n, v1, v2, rounds=BUDGET_ROUNDS,
-                                 fast_rounds=BUDGET_FAST, u4_full=u_full)
-    finally:
-        RS.sample_and_hit = real
-
-
-def budget_launch(torch, RS, name, u4, r, c, fv, skip, rate):
-    """One launch of the budget against the plain version: ok bit for bit
-    everywhere, cand bit for bit in every sample not skipped; its time, the
-    plain version's and its bound (the work these inputs need: the drawn
-    samples' candidates, mesh 1 only for the hits of mesh 2, and the
-    skipped samples' ok bytes)."""
-    cand, ok = RS.sample_and_hit(u4, r, c, fv, skip=skip)
-    cand_r, ok_r = RS.sample_and_hit_reference(u4, r, c, fv, skip)
-    drawn = torch.ones_like(ok[..., 0]) if skip is None else ~skip
-    check(torch.equal(ok, ok_r), f"budget {name}: {int((ok != ok_r).sum())} labels differ "
-          "from the plain version")
-    check(torch.equal(cand[drawn], cand_r[drawn]),
-          f"budget {name}: a drawn sample's cand differs from the plain version")
-    gap = (cand[drawn] - cand_r[drawn]).abs()  # empty where every sample is skipped
-    err = max(float(gap.max()) if gap.numel() else 0.0,
-              float((ok.int() - ok_r.int()).abs().max()))
-    B, C = max(1, drawn.numel()), u4.shape[-1]
-    n_drawn, skipped = int(drawn.sum()) * C, B - int(drawn.sum())
-    h2 = int(RS._mesh_hit(fv[..., RS.NF:, :], cand_r)[drawn].sum())
-    ms = kernel_ms(torch, lambda: RS.sample_and_hit(u4, r, c, fv, skip=skip), BUDGET_REPS,
-                   "resample_kernel")
-    plain_ms = cuda_ms(torch, lambda: RS.sample_and_hit_reference(u4, r, c, fv, skip), 2,
-                       warmup=1)
-    ops = RS.ops_needed(n_drawn, h2)
-    # a drawn sample reads its uniforms, faces and sphere and writes cand and
-    # ok; a skipped one reads its flag and writes ok, nothing else
-    nbytes = (n_drawn * 41 + skipped * C + int(drawn.sum()) * (24 * 16 * 4 + 16)
-              + B * (skip is not None))
-    (mb, _), (db, dby) = bounds(ops, nbytes, rate)
-    shape = f"B={B} C={C}" if u4.dim() == 3 else f"C={C}"
-    print(f"budget {name} ({shape}, {skipped} of {B} samples skipped): ok and the drawn cand "
-          f"equal the plain version bit for bit; accepted {int(ok_r.sum())}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms; bound {mb:.5f} ms at the measured rate ({mb / ms:.1%} of "
-          f"it reached), {db:.5f} ms by {dby} at the data sheet's", flush=True)
-    return dict(shape=shape, skipped=skipped, accepted=int(ok_r.sum()), ms=ms, plain_ms=plain_ms,
-                bound_ms=db, bound_by=dby, bound_ms_measured_rate=mb, ops_needed=ops,
-                max_abs_err=err)
-
-
-def hit_share(torch, G, RS, batch, n):
-    """Each mesh's hit share for every pair of a DCP batch at the budget's
-    tight radius, on ``BUDGET_FAST * n`` candidates of the plain version on
-    the card (the kernel's bits; no launch counted): [[mesh 1, mesh 2,
-    both], ...]."""
-    src, tar = batch["points_src_sample"], batch["points_tar_sample"]
-    diag = torch.linalg.vector_norm(batch["tar_box"][:, 0] - batch["tar_box"][:, -1], dim=-1)
-    fv = RS.prep_faces(G.bbox_face_vertices(src), G.bbox_face_vertices(tar))
-    u4 = torch.rand((src.shape[0], 4, BUDGET_FAST * n), generator=gen_on(torch, 24), device=DEV)
-    cand, ok = RS.sample_and_hit_reference(u4, diag * BUDGET_TIGHT, batch["centers"], fv)
-    shares = torch.stack([RS._mesh_hit(fv[:, :RS.NF], cand), RS._mesh_hit(fv[:, RS.NF:], cand),
-                          ok], -1).float().mean(1).tolist()
-    print(f"budget: DCP's first batch at a tenth of each target box's diagonal, "
-          f"{BUDGET_FAST * n} candidates a pair: hit share of mesh 1 (source box), mesh 2 "
-          f"(target box), both, by pair {[[round(x, 5) for x in p] for p in shares]}",
-          flush=True)
-    return shares
-
-
-def resample_budget_phase(torch, G, IK, RS, PB, LN, data, batch, rate):
-    """The resampler's round budget (module docstring, phase 23): the
-    classical pair unbatched at its own radius and a tight one, then DCP's
-    first batch with two samples at each. Returns (launches of the driven
-    path, the launches' records for the unbatched and the batched kernel
-    entries, the numbers)."""
-    from a_robust_registration_loss_tpu_torch.train import graphs
-
-    gen = gen_on(torch, 23)
-    n, n3 = N_LINES, L3
-
-    def draw(shape, m):  # the fast and the fallback stream's uniforms
-        return tuple(torch.rand(shape + (4, k * m), generator=gen, device=DEV)
-                     for k in (BUDGET_FAST, BUDGET_ROUNDS))
-
-    single = {name: (*draw((), n), r, data["center"], data["src"], data["tar"])
-              for name, r in (("classical radius", data["radius"]),
-                              ("tight radius", data["radius"] * BUDGET_TIGHT))}
-    # samples 0 and 1 on pair 0 at the tight radius, 2 and 3 on pairs 2 and 3
-    # at the diagonal. Pair 1 at the tight radius keeps too few for the fast
-    # branch: its sphere lies inside both boxes, but its target box's face
-    # tests pass few of the lines that cross them, A + B + C <= S holding
-    # with equality in real arithmetic for every crossing
-    # (tools/hit_test_labels.py takes it apart face by face, with the JAX
-    # package's labels). Each mesh's hit share of every pair, on the card:
-    shares = hit_share(torch, G, RS, batch, n3)
-    rows = torch.tensor(BUDGET_PAIRS, device=DEV)
-    diag = torch.linalg.vector_norm(batch["tar_box"][rows, 0] - batch["tar_box"][rows, -1],
-                                    dim=-1)
-    scale = torch.tensor([BUDGET_TIGHT, BUDGET_TIGHT, 1.0, 1.0], device=DEV)
-    batched = (*draw((B3,), n3), diag * scale, batch["centers"][rows],
-               batch["points_src_sample"][rows], batch["points_tar_sample"][rows])
-
-    # the path, driven once per input with the counters at 0: 2 launches a call
-    counts(IK, RS, PB, reset=True)
-    lines = {name: budget_call(LN, RS, *args[:4], n, *args[4:]) for name, args in single.items()}
-    lines["batched"] = budget_call(LN, RS, *batched[:4], n3, *batched[4:])
-    driven = counts(IK, RS, PB)
-    check_counts(driven, {"resample_sample_and_hit": 4, "resample_batched": 2}, 1, "budget")
-
-    numbers, records = {"tight radius hit shares by pair": shares}, {"single": {}, "batched": {}}
-    for name, args in [*single.items(), ("batched", batched)]:
-        u_fast, u_full, r, c, v1, v2 = args
-        m = n3 if name == "batched" else n
-        is_b = name == "batched"
-        fv = RS.prep_faces(G.bbox_face_vertices(v1 if is_b else v1[None]),
-                           G.bbox_face_vertices(v2 if is_b else v2[None]))
-        fv = fv if is_b else fv[0]
-        _, ok = RS.sample_and_hit(u_fast, r, c, fv)
-        enough = ok.sum(-1) >= m
-        acc = (ok.float().mean(-1) if is_b else ok.float().mean()).tolist()
-        plain = budget_call(LN, RS, *args[:4], m, *args[4:], plain=True)
-        check(torch.equal(lines[name], plain),
-              f"budget {name}: the lines differ from the plain version's")
-        branch = ["fast" if e else "fallback" for e in enough.reshape(-1).tolist()]
-        print(f"budget {name}: fast-stream acceptance {acc}, branch {branch} "
-              f"({int(enough.sum())} of {enough.numel()} samples skipped by the second "
-              "launch); the lines equal the plain version's bit for bit", flush=True)
-        numbers[name] = dict(acceptance=acc, branch=branch)
-        rec = records["batched" if is_b else "single"]
-        key = "" if is_b else (" tight" if name == "tight radius" else " classical")
-        rec["fast" + key] = budget_launch(torch, RS, f"{name} fast launch", u_fast, r, c, fv,
-                                          None, rate)
-        rec["second" + key] = budget_launch(torch, RS, f"{name} second launch", u_full, r, c,
-                                            fv, enough, rate)
-        if is_b or name == "classical radius":  # the fully skipped launch, beside a full one
-            rec["skipped all"] = budget_launch(torch, RS, f"{name} fully skipped launch", u_full,
-                                               r, c, fv, torch.ones_like(enough), rate)
-        numbers[name]["call_ms"] = cuda_ms(
-            torch, lambda: budget_call(LN, RS, *args[:4], m, *args[4:]), BUDGET_REPS)
-        numbers[name]["one_stream_call_ms"] = cuda_ms(torch, lambda: LN.resample_lines(
-            u_full, r, c, m, v1, v2), BUDGET_REPS)
-        print(f"budget {name}: the budgeted call {numbers[name]['call_ms']:.4f} ms, the "
-              f"one-stream call on the fallback stream {numbers[name]['one_stream_call_ms']:.4f} "
-              "ms (CUDA events, back to back)", flush=True)
-    check(numbers["classical radius"]["branch"] == ["fallback"]
-          and numbers["tight radius"]["branch"] == ["fast"]
-          and numbers["batched"]["branch"] == ["fast", "fast", "fallback", "fallback"],
-          f"budget: the branches {numbers} are not those the radii were chosen for")
-
-    # one graph captured on each branch's inputs, replayed on the other's
-    u_fast, u_full, r, c, v1, v2 = single["tight radius"]
-    static = dict(u_fast=u_fast.clone(), u_full=u_full.clone(), r=r.clone(), c=c.clone(),
-                  v1=v1.clone(), v2=v2.clone())
-
-    def fill(name):
-        for dst, src in zip(static.values(), single[name]):
-            dst.copy_(src)
-
-    def call():
-        return LN.resample_lines(static["u_fast"], static["r"], static["c"], n, static["v1"],
-                                 static["v2"], rounds=BUDGET_ROUNDS, fast_rounds=BUDGET_FAST,
-                                 u4_full=static["u_full"])
-
-    names = list(single)
-    for first in names:
-        fill(first)
-        torch.cuda.synchronize()
-        g = graphs.Graph(call, tuple(static.values()))
-        check(g.counts == {("resample", "single"): 2},
-              f"budget graph: {g.counts} launches a replay, not 2")
-        for name in (first, *(x for x in names if x != first)):
-            fill(name)
-            check(torch.equal(g.replay(), lines[name]),
-                  f"budget graph captured on the {first}: its replay on the {name} differs from "
-                  "the eager call")
-        turn = [0]
-
-        def one():
-            fill(names[turn[0] % 2])
-            turn[0] += 1
-            g.replay()
-
-        numbers[f"graph captured on the {first}"] = profile_phase(
-            torch, one, BUDGET_PROFILED, "replay", numbers["classical radius"]["call_ms"])
-        print(f"budget graph captured on the {first}: replays on both radii equal the eager "
-              "calls bit for bit; 0 host copies, 0 waits", flush=True)
-    # the replay's time on each branch beside a graph of the one-stream call
-    # on the fallback stream
-    one_stream = graphs.Graph(lambda: LN.resample_lines(
-        static["u_full"], static["r"], static["c"], n, static["v1"], static["v2"]),
-        tuple(static.values()))
-    for name in names:
-        fill(name)
-        numbers[name].update(graph_replay_ms=cuda_ms(torch, g.replay, BUDGET_REPS),
-                             one_stream_graph_replay_ms=cuda_ms(torch, one_stream.replay,
-                                                                BUDGET_REPS))
-        print(f"budget {name}: a replay of the budgeted call's graph "
-              f"{numbers[name]['graph_replay_ms']:.4f} ms, of the one-stream call's "
-              f"{numbers[name]['one_stream_graph_replay_ms']:.4f} ms (CUDA events, back to "
-              "back)", flush=True)
-    del g, one_stream
-    numbers["eager profile"] = profile_phase(
-        torch, lambda: budget_call(LN, RS, *single["classical radius"][:4], n,
-                                   *single["classical radius"][4:]),
-        BUDGET_PROFILED, "call", numbers["classical radius"]["call_ms"])
-    return driven, records, numbers
 
 
 def dcp_points():
@@ -2635,7 +2398,7 @@ def data_phase(torch, mods, tmp):
     torch.cuda.synchronize()
     ms_normals = 1e3 * (time.perf_counter() - t0)
     counts(IK, RS, PB, reset=True)
-    FK.launches = 0
+    FK.launches.clear()
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
@@ -2648,7 +2411,8 @@ def data_phase(torch, mods, tmp):
     check_counts(counts(IK, RS, PB), {}, 1, "make_dataset")
     check(n == 6 * VIEWS5, f"make_dataset wrote {n} pairs")
     # FPS: a pair's two subsets of its base cloud and its two neighbourhood sets
-    check(FK.launches == 4 * n, f"make_dataset: {FK.launches} fps launches for {n} pairs")
+    check(FK.launches["kernel"] == 4 * n,
+          f"make_dataset: {FK.launches['kernel']} fps launches for {n} pairs")
     check(objio.backend() == "native", f"objio backend {objio.backend()}")
     print(f"data: make_dataset.main, 6 base clouds of {N_BASE5} points x {VIEWS5} views at "
           f"{NP5} points, F={NP5}: {n} pairs in {dt:.2f} s ({log.getvalue().splitlines()[-1]}); "
@@ -4364,10 +4128,11 @@ def main():
     cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES)
     v1, v2 = synthetic_pair()
     t0 = time.perf_counter()
-    FK.launches = 0
+    FK.launches.clear()
     data = classical.prepare_pair(v1, v2, cfg, device=DEV)
     torch.cuda.synchronize()
-    check(FK.launches == 2, f"prepare_pair: {FK.launches} fps launches (want one a cloud)")
+    check(FK.launches["kernel"] == 2,
+          f"prepare_pair: {FK.launches['kernel']} fps launches (want one a cloud)")
     print(f"prepare_pair: {time.perf_counter() - t0:.2f} s, "
           f"F={data['neis_src'].shape[0]}", flush=True)
 
@@ -4388,13 +4153,6 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     resample_batched = timed(seconds, "resample_batched", resample_batch_phase, torch, G, RS,
                              batches3[0], rate)
-    budget, budget_records, budget_numbers = timed(
-        seconds, "resample_budget", resample_budget_phase, torch, G, IK, RS, PB, LN, data,
-        batches3[0], rate)
-    resample["budget"], resample_batched["budget"] = (budget_records["single"],
-                                                      budget_records["batched"])
-    print("the round budget on the card (NVIDIA card above): " + json.dumps(budget_numbers),
-          flush=True)
     cfg3, model3 = dcp_model(torch, D, TD, LS)
     dcp = timed(seconds, "dcp_kernels", dcp_kernels_phase, torch, mods3, cfg3, model3, batches3[0],
                 rate)
@@ -4488,7 +4246,7 @@ def main():
              "prepare_pair": {"fps": 2}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,
-             "dcp_graph_gather": dcp["graph_gather"], "resample_budget": budget,
+             "dcp_graph_gather": dcp["graph_gather"],
              "classical_batch": classical_batch,
              "demo": demo_launches, "dcp_train": dcp_train, "fmr_train": fmr_train,
              "fmr_eval_only": fmr_eval, "dcp_cli_train": dcp_cli,

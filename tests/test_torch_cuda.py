@@ -52,10 +52,7 @@ relative L2, and one classical step's loss and twists within 1e-6; the
 classical step's CUDA graph (``train/graphs.py``) equal to the eager loop
 bit for bit over 10 epochs, its launch counters counting per replay, and
 three DCP train steps through the scanned epoch's graphs equal to three
-eager steps bit for bit; the resampler's skip flags (the round budget's
-second launch) equal to the plain version bit for bit, and the budgeted
-``resample_lines`` equal to its plain version, eagerly and from a CUDA
-graph replayed on either branch's inputs; and farthest-point sampling's
+eager steps bit for bit; and farthest-point sampling's
 kernel equal to the plain loop on the card bit for bit, one launch a call,
 at B of 1, 2 and 8, clouds held on chip and streamed, every pick count from
 1 to N + 3, from index 0 and from given (also negative) starts, on lattice
@@ -180,105 +177,6 @@ def test_resample_kernel_adversarial(cuda_device, case):
     for b in range(u4.shape[0] if key == "batched" else 0):
         one = RS.sample_and_hit(u4[b], r[b], c[b], fv[b])
         assert torch.equal(cand[b], one[0]) and torch.equal(ok[b], one[1])
-
-
-@pytest.mark.cuda
-def test_resample_kernel_skip_matches_plain(cuda_device):
-    """The round budget's second launch: a sample whose skip flag is set
-    draws nothing, its ok is all False and equal to the plain version's bit
-    for bit, and every other sample's cand and ok equal it too; a launch
-    with skip counts as a launch, and one with no flag set equals a launch
-    without skip."""
-    B = 3
-    v1 = torch.stack([torch.tensor(_cloud(700, 40 + b)) for b in range(B)]).to(cuda_device)
-    v2 = torch.stack([torch.tensor(_cloud(700, 50 + b)) for b in range(B)]).to(cuda_device) + 0.05
-    fv = RS.prep_faces(G.bbox_face_vertices(v1), G.bbox_face_vertices(v2))
-    g = torch.Generator(device=cuda_device).manual_seed(3)
-    u4 = torch.rand((B, 4, 30_001), generator=g, device=cuda_device)
-    r, c = torch.tensor([0.3, 2.2, 1.8], device=cuda_device), v2.mean(1)
-    cases = [(u4, r, c, fv, torch.tensor(flags, device=cuda_device), "batched")
-             for flags in ([True, False, True], [False] * B, [True] * B)]
-    cases += [(u4[1], r[1], c[1], fv[1], torch.tensor(flag, device=cuda_device), "single")
-              for flag in (True, False)]
-    for u, rr, cc, f, skip, key in cases:
-        before = RS.launches[key]
-        cand, ok = RS.sample_and_hit(u, rr, cc, f, skip=skip)
-        assert RS.launches[key] == before + 1
-        cand_r, ok_r = RS.sample_and_hit_reference(u, rr, cc, f, skip)
-        assert torch.equal(ok, ok_r) and not ok[skip].any()
-        assert torch.equal(cand[~skip], cand_r[~skip])
-        if not skip.any():
-            assert torch.equal(ok, RS.sample_and_hit(u, rr, cc, f)[1])
-    with pytest.raises(ValueError):
-        RS.sample_and_hit(u4, r, c, fv, skip=torch.zeros(B, dtype=torch.uint8, device=cuda_device))
-
-
-def _budget_inputs(device, batched):
-    """The round budget's inputs (u_fast, u_full, r, center, v1, v2, n) on
-    two radii: the tight one, where the fast stream suffices, and the wide
-    one, where it falls short; batched, one sample at each."""
-    n, g = 2000, torch.Generator(device=device).manual_seed(7)
-    v1 = torch.tensor(_cloud(900, 60), device=device)
-    v2 = torch.tensor(_cloud(900, 61), device=device) + 0.05
-    radii = torch.tensor([0.2, 4.0], device=device)
-    shape = (2,) if batched else ()
-    out = {}
-    for name, r in (("fast", radii), ("fallback", radii.flip(0))):
-        u_fast = torch.rand(shape + (4, 3 * n), generator=g, device=device)
-        u_full = torch.rand(shape + (4, 10 * n), generator=g, device=device)
-        if batched:
-            out[name] = (u_fast, u_full, r, torch.stack([v2.mean(0)] * 2), torch.stack([v1] * 2),
-                         torch.stack([v2] * 2), n)
-        else:
-            out[name] = (u_fast, u_full, r[0], v2.mean(0), v1, v2, n)
-    return out
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("batched", [False, True])
-def test_resample_budget_graph_replays_both_branches(cuda_device, batched):
-    """``resample_lines`` under the round budget (rounds 10, fast_rounds 3):
-    eagerly, each sample's branch is the plain version's and the lines
-    equal the plain version's (on the card) bit for bit; captured in a CUDA
-    graph on one branch's inputs, a replay on the other branch's inputs
-    copied into its static buffers equals the eager call bit for bit, with
-    2 resampler launches a replay. Batched, the two samples swap branches
-    between the two inputs."""
-    from a_robust_registration_loss_tpu_torch.train import graphs
-
-    inputs = _budget_inputs(cuda_device, batched)
-
-    def budget(u_fast, u_full, r, c, v1, v2, n):
-        return LN.resample_lines(u_fast, r, c, n, v1, v2, rounds=10, fast_rounds=3,
-                                 u4_full=u_full)
-
-    eager = {}
-    for name, args in inputs.items():
-        eager[name] = budget(*args)
-        u_fast, u_full, r, c, v1, v2, n = args
-        fv = RS.prep_faces(G.bbox_face_vertices(v1 if batched else v1[None]),
-                           G.bbox_face_vertices(v2 if batched else v2[None]))
-        fv = fv if batched else fv[0]
-        cand, ok = RS.sample_and_hit_reference(u_fast, r, c, fv)
-        enough = ok.sum(-1) >= n
-        first = enough.reshape(-1)[0].item()
-        assert first == (name == "fast")
-        assert not batched or enough.tolist() == [first, not first]
-        cand2, ok2 = RS.sample_and_hit_reference(u_full, r, c, fv, enough)
-        want = torch.where(enough[..., None, None], LN._fill_first_n_gather(cand, ok, n),
-                           LN._fill_first_n_gather(cand2, ok2, n))
-        assert torch.equal(eager[name], want)
-    key = "batched" if batched else "single"
-    for first in inputs:
-        static = [x.clone() if torch.is_tensor(x) else x for x in inputs[first]]
-        g = graphs.Graph(lambda: budget(*static), static[:-1])
-        assert g.counts == {("resample", key): 2}
-        for name in (first, *(x for x in inputs if x != first)):
-            for dst, src in zip(static[:-1], inputs[name][:-1]):
-                dst.copy_(src)
-            before = RS.launches[key]
-            assert torch.equal(g.replay(), eager[name])
-            assert RS.launches[key] == before + 2
 
 
 @pytest.mark.cuda
@@ -465,9 +363,9 @@ def test_stage1_segments_match_plain(cuda_device, case):
 def test_probe_matches_plain(cuda_device, iters):
     x = torch.rand(10_000, generator=torch.Generator().manual_seed(iters)) * 0.6 + 0.05
     x = x.to(cuda_device)
-    before = PB.launches
+    before = PB.launches["kernel"]
     got = PB.logistic_map(x, iters)
-    assert PB.launches == before + 1
+    assert PB.launches["kernel"] == before + 1
     assert torch.equal(got, PB.logistic_map_reference(x, iters))
 
 
@@ -502,9 +400,9 @@ def _fps_clouds(B, N, seed):
 
 def _fps_case(xyz, npoint, start=None):
     """The kernel's indices equal the plain loop's on the card, in one launch."""
-    before = FK.launches
+    before = FK.launches["kernel"]
     got = FK.farthest_point_sample(xyz, npoint, start)
-    assert FK.launches == before + 1
+    assert FK.launches["kernel"] == before + 1
     want = G.farthest_point_sample_reference(xyz, npoint, start)
     assert got.dtype == torch.int64 and got.shape == want.shape
     assert torch.equal(got, want)
@@ -549,9 +447,9 @@ def test_fps_kernel_on_the_demo_clouds(cuda_device):
     for xyz in (pair, pair[:1], pair[1:].contiguous(),
                 torch.tensor(_cloud(8192, 5), device=cuda_device)[None]):
         idx = _fps_case(xyz, 5000)
-        before = FK.launches
+        before = FK.launches["kernel"]
         neigh = G.sample_neighs(xyz[0], 5000, 3)
-        assert FK.launches == before + 1
+        assert FK.launches["kernel"] == before + 1
         assert torch.equal(neigh[::3], xyz[0, idx[0]])
 
 
@@ -727,11 +625,11 @@ def test_gather_kernels_match_plain(cuda_device, shape, dtype):
     table = torch.randn((B, N, C), generator=g).to(cuda_device)
     up = torch.randn((B, Q, C), generator=g).to(cuda_device)
     idx = torch.randint(-2, N + 2, (B, Q), generator=g, dtype=dtype).to(cuda_device)
-    before = dict(GK.launches)
+    before = GK.launches.copy()
     leaf = table.clone().requires_grad_(True)
     out = GK.gather_rows(leaf, idx)
     (grad,) = torch.autograd.grad(out, leaf, up)
-    assert GK.launches == {k: n + 1 for k, n in before.items()}  # forward, sort, sum
+    assert GK.launches - before == {"fwd": 1, "bwd_sort": 1, "bwd_sum": 1}
     assert torch.equal(out.detach(), GK.gather_rows_reference(table, idx))
     bad = (idx < 0) | (idx >= N)
     assert bool(bad.any()) and bool((out.detach()[bad] == 0).all())
@@ -800,14 +698,13 @@ def test_gather_backward_edge_cases(cuda_device, case, dtype):
     """The sort equals its plain version exactly, the sum and the whole
     backward equal the CPU's plain version bit for bit, twice."""
     g, idx, N = _gather_edge_case(case, dtype)
-    before = dict(GK.launches)
+    before = GK.launches.copy()
     start, perm = GK.sort_by_row(idx.to(cuda_device), N)
     want_start, want_perm = GK.sort_by_row_reference(idx, N)
     assert torch.equal(start.cpu(), want_start) and torch.equal(perm.cpu(), want_perm)
     want = GK.gather_rows_bwd_reference(g, idx, N)
     assert torch.equal(GK.segmented_sum(g.to(cuda_device), start, perm).cpu(), want)
-    assert GK.launches == {"fwd": before["fwd"], "bwd_sort": before["bwd_sort"] + 1,
-                           "bwd_sum": before["bwd_sum"] + 1}
+    assert GK.launches - before == {"bwd_sort": 1, "bwd_sum": 1}
     for _ in range(2):
         got = GK.gather_rows_bwd(g.to(cuda_device), idx.to(cuda_device), N)
         assert torch.equal(got.cpu(), want)
@@ -1035,7 +932,7 @@ def test_rpm_ball_query_and_gather_on_card(cuda_device):
     assert torch.equal(card[~edge], cpu[~edge]) and (~edge).sum() > B * N // 2
     table = torch.cat([xyz, normals], -1).to(cuda_device)
     idx = card.to(cuda_device).reshape(B, N * ns)
-    before = dict(GK.launches)
+    before = GK.launches.copy()
     out = GK.gather_rows(table, idx)
     assert GK.launches["fwd"] - before["fwd"] == 1
     assert GK.launches["bwd_sum"] == before["bwd_sum"]
@@ -1043,7 +940,7 @@ def test_rpm_ball_query_and_gather_on_card(cuda_device):
     assert torch.equal(out, torch.take_along_dim(table, idx[..., None], 1))
 
     model = R.RPMNetEarlyFusion(R.RPMNetConfig(feat_dim=32)).to(cuda_device)
-    before = dict(GK.launches)
+    before = GK.launches.copy()
     transforms, _ = model(xyz_d, normals.to(cuda_device), xyz_d, normals.to(cuda_device),
                           num_iter=2)
     sum(t.sum() for t in transforms).backward()
@@ -1154,7 +1051,7 @@ def _classical_runs(device, n_epochs, modes):
         params = TC.init_twist(g)
         IK.launches.clear()
         RS.launches.clear()
-        CH.launches.update(kernel=0)
+        CH.launches.clear()
         carry, hist = TC._loop(cfg, TC.make_step(cfg, data), params, data["src"], g, None,
                                mode=mode)
         torch.cuda.synchronize()

@@ -19,7 +19,19 @@ CUDA kernel and its plain version, which share their arithmetic, are held
 to equal candidates and labels bit for bit: ``tests/test_torch_cuda.py``
 and chip_smoke.py; ``tests/test_torch_resample.py`` holds the plain
 version's labels to the XLA path's on the knife-edge sets.
+
+``resample_lines`` itself, one stream of ``ROUNDS * n`` candidates as the
+JAX package draws it: on the port's candidates labelled by the JAX XLA
+``triangle_hits``, its lines equal JAX's ``_fill_first_n_gather`` bit for
+bit; against JAX's own ``resample_lines`` under ``jit(vmap)`` on the same
+uniforms, its kept rows meet the bars above (rows within 1e-4, the kept
+count within 10%). On ``chip_smoke.py``'s DCP pairs at a tight radius
+(``tools/hit_test_labels.py``), the port's labels are the JAX package's
+``triangle_hits``, mesh by mesh.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -36,9 +48,17 @@ from a_robust_registration_loss_tpu_torch.ops import lines as LN
 from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
 from torch_port_helpers import sphere_cloud, t
 
+_spec = importlib.util.spec_from_file_location(
+    "hit_test_labels", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools", "hit_test_labels.py"))
+HIT = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(HIT)
+
 torch.set_num_threads(1)
 
 R_SPHERE = np.float32(2.2)
+N_STREAM = 128  # lines of the one-stream tests, from LN.ROUNDS * N_STREAM candidates
+RADII = [1.3, 6.0]  # most candidates kept / too few to fill the n lines
 
 
 @pytest.fixture(scope="module")
@@ -173,3 +193,145 @@ def test_wrapper_refuses_other_devices(scene):
     with pytest.raises(ValueError):
         RS.sample_and_hit(u4, 1.0, t(center).to("meta"),
                           RS.prep_faces(t(fvs1), t(fvs2)).to("meta"))
+
+
+def _clouds(seed):
+    rng = np.random.default_rng(seed)
+    v1 = sphere_cloud(200, rng, noise=0.02)
+    v2 = sphere_cloud(200, rng, noise=0.02) + np.float32(0.05)
+    return v1, v2
+
+
+def _stream_case(radius, batched):
+    """(u4, r, center, v1, v2) as numpy: one sample, or a batch of two
+    samples with different clouds, at ``radius``; the uniforms are a
+    ``jax.random`` draw of LN.ROUNDS * N_STREAM candidates."""
+    if batched:
+        rng = np.random.default_rng(9)
+        v1 = np.stack([sphere_cloud(200, rng, noise=0.02) for _ in range(2)])
+        v2 = v1 + np.float32(0.05)
+        key, lead = jax.random.PRNGKey(3), (2,)
+    else:
+        v1, v2 = _clouds(8)
+        key, lead = jax.random.PRNGKey(int(radius * 10)), ()
+    u4 = np.asarray(jax.random.uniform(jax.random.split(key)[1],
+                                       (*lead, 4, LN.ROUNDS * N_STREAM)))
+    return u4, np.full(lead, radius, np.float32), v2.mean(-2), v1, v2
+
+
+def _jax_fill(u4, r, center, v1, v2):
+    """JAX's fill of the port's candidates: labelled by the XLA
+    ``triangle_hits`` (op by op, as the JAX package runs it outside
+    ``jit``), then ``_fill_first_n_gather``."""
+    fvs = [JG.bbox_face_vertices(jnp.asarray(v)[None])[0] for v in (v1, v2)]
+    cand = jnp.asarray(LN.sample_lines(t(u4), t(r), t(center)).numpy())
+    ok = (JL.triangle_hits(fvs[0], cand) > 0) & (JL.triangle_hits(fvs[1], cand) > 0)
+    return np.asarray(JL._fill_first_n_gather(cand, ok, N_STREAM))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("radius", RADII)
+def test_resample_lines_is_the_jax_fill_on_the_port_candidates(radius, batched):
+    u4, r, center, v1, v2 = _stream_case(radius, batched)
+    got = LN.resample_lines(t(u4), t(r), t(center), N_STREAM, t(v1), t(v2)).numpy()
+    assert got.shape == u4.shape[:-2] + (N_STREAM, 6)
+    for b in np.ndindex(u4.shape[:-2]):
+        np.testing.assert_array_equal(got[b], _jax_fill(u4[b], r[b], center[b], v1[b], v2[b]))
+    kept = (np.abs(got).sum(-1) > 0).sum(-1)
+    assert np.all(kept == N_STREAM) if radius == RADII[0] else np.all(kept < N_STREAM)
+
+
+def _stream_index(lines, cand):
+    """The stream index of each kept (nonzero) row of ``lines``, the kept
+    rows being candidates in stream order: each row matched to the next
+    candidate within 1e-4; None if one has no match."""
+    idx, i = [], 0
+    for row in lines[np.abs(lines).sum(-1) > 0]:
+        while i < len(cand) and np.abs(cand[i] - row).max() > 1e-4:
+            i += 1
+        if i == len(cand):
+            return None
+        idx.append(i)
+        i += 1
+    return np.array(idx)
+
+
+@pytest.fixture(scope="module")
+def jax_resampler():
+    """JAX's own one-stream ``resample_lines`` under ``jit(vmap)``, as its
+    trainers run it (``train/losses.py``), on two samples with different
+    clouds at each radius: {radius: (keys, clouds (v1, v2) (2, N, 3), lines
+    (2, n, 6))}."""
+    rng = np.random.default_rng(11)
+    v1 = np.stack([sphere_cloud(200, rng, noise=0.02) for _ in range(2)])
+    v2 = v1 + np.float32(0.05)
+    keys = jnp.stack([jax.random.PRNGKey(100 + b) for b in range(2)])
+
+    def one(key, r, a, b):
+        return JL.resample_lines(key, r, jnp.mean(b, 0), N_STREAM, a, b)
+
+    run = jax.jit(jax.vmap(one, in_axes=(0, None, 0, 0)))
+    return {r: (keys, (v1, v2), np.asarray(run(keys, jnp.float32(r), jnp.asarray(v1),
+                                                jnp.asarray(v2))))
+            for r in RADII}
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("radius", RADII)
+def test_resample_lines_meets_the_jax_resampler_bars(jax_resampler, radius, batched):
+    """JAX's own resampler on its own keys against the port on the same
+    uniforms, held to the bars of the JAX package's own resampler paths:
+    each kept row within 1e-4 of the port's candidate at its place in the
+    stream, the kept count within 10%. The labels themselves are not
+    compared: XLA:CPU contracts multiply-adds in the compiled program,
+    which moves knife-edge labels, and a moved label shifts every later
+    row, so the rows are matched by their index in the stream."""
+    keys, (v1, v2), want = jax_resampler[radius]
+    u4 = np.stack([np.asarray(jax.random.uniform(k, (4, LN.ROUNDS * N_STREAM))) for k in keys])
+    center = v2.mean(1)
+    if batched:
+        got = LN.resample_lines(t(u4), t(np.full(2, radius, np.float32)), t(center), N_STREAM,
+                                t(v1), t(v2)).numpy()
+    else:
+        got = np.stack([LN.resample_lines(t(u4[b]), radius, t(center[b]), N_STREAM, t(v1[b]),
+                                          t(v2[b])).numpy() for b in range(2)])
+    for b in range(2):
+        fv = RS.prep_faces(G.bbox_face_vertices(t(v1[b])[None])[0],
+                           G.bbox_face_vertices(t(v2[b])[None])[0])
+        cand, ok = (x.numpy() for x in RS.sample_and_hit(t(u4[b]), radius, t(center[b]), fv))
+        idx_p = np.flatnonzero(ok)[:N_STREAM]
+        np.testing.assert_array_equal(got[b, :len(idx_p)], cand[idx_p])
+        assert not got[b, len(idx_p):].any()
+        idx_j = _stream_index(want[b], cand)
+        assert idx_j is not None and abs(len(idx_p) - len(idx_j)) <= 0.1 * len(idx_j)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("width", ["one candidate short", "one round too many"])
+def test_resample_lines_refuses_a_u4_of_another_width(width, batched):
+    v1, v2 = (t(v) for v in _clouds(8))
+    c, r = v2.mean(0), torch.tensor(RADII[0])
+    C = LN.ROUNDS * N_STREAM - 1 if width == "one candidate short" else (LN.ROUNDS + 1) * N_STREAM
+    u4 = torch.rand(4, C)
+    if batched:
+        u4, r, c, v1, v2 = (x.expand(2, *x.shape) for x in (u4, r, c, v1, v2))
+    with pytest.raises(ValueError, match="candidates"):
+        LN.resample_lines(u4, r, c, N_STREAM, v1, v2)
+
+
+@pytest.mark.parametrize("pair", [0, 1])
+def test_tight_radius_labels_are_jax_on_dcp_pairs(pair):
+    """``chip_smoke.py``'s DCP pairs at a tight radius, taken apart by
+    ``tools/hit_test_labels.py``: the sphere lies inside both boxes, so
+    every line crosses each box's surface twice; the port labels every
+    candidate as the JAX package's ``triangle_hits`` does, mesh by mesh; and
+    the float32 test passes no line that misses a face. (Pair 1's target box
+    passes few of its crossings: the A + B + C <= S knife edge of both
+    packages.)"""
+    rec = HIT.labels(pair, candidates=2000, with_jax=True)
+    np.testing.assert_array_equal(rec["port_hits"], rec["jax_hits"])
+    for mesh in ("mesh1", "mesh2"):
+        assert rec[mesh]["margin"] > 1
+        faces = rec[mesh]["faces"]
+        assert sum(f["crossing"] for f in faces) == 2 * 2000
+        assert not any(f["passed_not_crossing"] for f in faces)

@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
 """Take the resampler's hit test apart on ``chip_smoke.py``'s DCP pairs at
-the round budget's tight radius.
+a tight radius.
 
     python3 tools/hit_test_labels.py [--pairs 0,1,2,3] [--candidates 20000] [--seed 1]
                                      [--device cpu] [--jax]
 
 For each pair of DCP's first batch (``chip_smoke.dcp_points``), lines are
 drawn through the sphere of a tenth of the target box's diagonal
-(``chip_smoke.BUDGET_TIGHT``) about the target's centroid, as the budget
-phase draws them. For each of the two box meshes (1 the source's, 2 the
-target's) it prints:
+(``TIGHT``) about the target's centroid: a sphere inside both boxes. For
+each of the two box meshes (1 the source's, 2 the target's) it prints:
 
 - ``margin``: the least distance from the sphere's centre to a face of the
   box, over the radius (float64). Above 1, every line through the sphere
@@ -36,6 +35,8 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+TIGHT = 0.1  # the sphere's radius over the target box's diagonal
 
 
 def face_counts(row, cand):
@@ -86,7 +87,7 @@ def labels(pair=1, candidates=20000, seed=1, device="cpu", with_jax=False):
     src, tar, _, _ = CS.dcp_points()
     src, tar = (torch.tensor(v[pair], device=device) for v in (src, tar))
     box = G.bounding_box_corners(tar[None])[0]
-    r = torch.linalg.vector_norm(box[0] - box[-1]) * CS.BUDGET_TIGHT
+    r = torch.linalg.vector_norm(box[0] - box[-1]) * TIGHT
     centre = tar.mean(0)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
