@@ -53,6 +53,10 @@ SIGNATURES = {
     "arrl_logistic": [_P, _P, _I, _I, _P],
     "arrl_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "arrl_chamfer": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+    "arrl_rigid_loss": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P],
+    "arrl_rigid_loss_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _I, _P, _P, _P],
 }
 
 _lib = None

@@ -23,7 +23,10 @@ reconstruction only. ``intersection_loss`` takes the value from the
 kernel's gathered coordinates and routes the gradient through
 ``slot_points_kernel``, an ``index_add_`` of w/nnei into the selected rows;
 the transformed and rigid paths differentiate the map applied to the
-gathered raw points instead.
+gathered raw points instead. On the card the rigid path's stage 2 and its
+gradient are the kernels of ``ops/cuda/rigid_loss.py``, whose backward is
+written out; the line-parallel path (``train/losses.py``) keeps
+``rigid_slots`` and ``stage2``.
 
 Faithful quirks kept from the JAX package: ``welsch(x, c) = 1 -
 exp(-(x/c)/2)`` on squared distances; the +2e-4 inside the point-line
@@ -370,16 +373,10 @@ def intersection_loss_transformed(apply_fn, point_neis1, point_neis2, lines,
     return stage2(pts1, pts2, inter1.count, inter2.count, kmin, kmax)
 
 
-def rigid_slots(R, t, point_neis1, point_neis2, lines, kmax: int):
-    """Stage 1 and slot reconstruction of the rigid path ->
-    (pts1 (..., L, kmax, 3), pts2 (..., L, kmax, 3), c1 (..., L), c2 (..., L)).
-    R (..., 3, 3) and t (..., 3) with the same optional batch axis as the
-    clouds and lines.
-
-    Stage 1 sees the already-transformed cloud 1 (detached), so its
-    reconstruction is un-transformed with the detached (R, t) and
-    re-transformed with the traced ones: the only place gradients enter."""
-    nnei = point_neis1.shape[-1] // 3
+def _rigid_stage1(R, t, point_neis1, point_neis2, lines, kmax: int):
+    """Stage 1 of the rigid path, without a gradient: cloud 1 moved by the
+    detached (R, t), both clouds in one pts-mode launch -> (count (..., 2,
+    L) int32, slot points (..., 2, L, kmax, nnei, 3))."""
     with torch.no_grad():
         lines = lines.detach()
         if R.dim() == 2:
@@ -392,6 +389,17 @@ def rigid_slots(R, t, point_neis1, point_neis2, lines, kmax: int):
         count, _idx, _, _, pts = IK.stage1(
             (neis1_t, neis2), lines, (neighborhood_delta(neis1_t), neighborhood_delta(neis2)),
             kmax, emit_d2=False, emit_recon=False, emit_pts=True)
+    return count, pts
+
+
+def _rigid_tail(R, t, count, pts, lines, kmax: int):
+    """``rigid_slots`` after stage 1, from its records (count (..., 2, L),
+    slot points (..., 2, L, kmax, nnei, 3)) -> (pts1, pts2, c1, c2, raw),
+    raw cloud 1's reconstructions moved back by the detached (R, t), a list
+    of 3 (..., L, kmax) tensors (no gradient)."""
+    nnei = pts.shape[-2]
+    with torch.no_grad():
+        lines = lines.detach()
         c1, c2 = count[..., 0, :], count[..., 1, :]
         r1 = _recon(pts[..., 0, :, :, :, :], c1, lines, kmax)
         r2 = _recon(pts[..., 1, :, :, :, :], c2, lines, kmax)
@@ -405,7 +413,20 @@ def rigid_slots(R, t, point_neis1, point_neis2, lines, kmax: int):
     pts1 = torch.stack([torch.where(filled1, f / nnei, 0.0) for f in fwd],
                        dim=-1)
     pts2 = torch.where(_slot_mask(c2, kmax)[..., None], r2 / nnei, 0.0)
-    return pts1, pts2, c1, c2
+    return pts1, pts2, c1, c2, raw
+
+
+def rigid_slots(R, t, point_neis1, point_neis2, lines, kmax: int):
+    """Stage 1 and slot reconstruction of the rigid path ->
+    (pts1 (..., L, kmax, 3), pts2 (..., L, kmax, 3), c1 (..., L), c2 (..., L)).
+    R (..., 3, 3) and t (..., 3) with the same optional batch axis as the
+    clouds and lines.
+
+    Stage 1 sees the already-transformed cloud 1 (detached), so its
+    reconstruction is un-transformed with the detached (R, t) and
+    re-transformed with the traced ones: the only place gradients enter."""
+    count, pts = _rigid_stage1(R, t, point_neis1, point_neis2, lines, kmax)
+    return _rigid_tail(R, t, count, pts, lines, kmax)[:4]
 
 
 def intersection_loss_rigid(R, t, point_neis1, point_neis2, lines,
@@ -414,7 +435,18 @@ def intersection_loss_rigid(R, t, point_neis1, point_neis2, lines,
     convention). R (..., 3, 3), t (..., 3), point_neis1/2 (..., F, nnei*3),
     lines (..., L, 6), with one optional leading batch axis on all five.
     Returns (loss, valid) as device tensors, per sample when batched, with
-    one stage-1 launch; the gradient flows to R and t."""
+    one stage-1 launch; the gradient flows to R and t.
+
+    On the card, stage 1's outputs go to ``ops/cuda/rigid_loss.py``
+    (``rigid_metric``): the rest of the metric in three launches, its
+    gradient in two, autograd's bit for bit. On the CPU, ``rigid_slots``
+    and ``stage2`` with autograd."""
+    if lines.device.type == "cuda":
+        # imported here: ops/cuda/rigid_loss.py imports this module for its plain version
+        from a_robust_registration_loss_tpu_torch.ops.cuda import rigid_loss as RL
+
+        count, pts = _rigid_stage1(R, t, point_neis1, point_neis2, lines, kmax)
+        return RL.rigid_metric(R, t, count, pts, lines, kmin, kmax)
     pts1, pts2, c1, c2 = rigid_slots(R, t, point_neis1, point_neis2, lines,
                                      kmax)
     return stage2(pts1, pts2, c1, c2, kmin, kmax)

@@ -311,6 +311,20 @@ Phases:
    the minima; the kernel's device time beside its bounds, the wrapper
    call's, the plain version's call and the device time of its ATen chain.
 
+26. (run after phase 25) the rigid metric after stage 1
+   (``rigid_loss_phase``, ``csrc/rigid_loss.cu``) at the cells' shapes,
+   (1, 20,000), (4, 15,000) and (8, 10,000) lines, on stage 1's records of
+   ``synthetic_pairs``: the forward's three and the backward's two kernels
+   against the ATen path with autograd (loss, validity, median, dR and dt
+   bit for bit), one forward and one backward call counted a call; the
+   kernels' device time, split by kernel, beside the ATen chain's device
+   time, the call through autograd, the plain version's and the byte bound
+   (slot points, lines and counts over 3.35 TB/s). Every phase that drives a
+   rigid path checks the metric's counters too (``rigid_loss``,
+   ``rigid_loss_grad``): one forward a call of ``intersection_loss_rigid``
+   on the card, one backward where it is differentiated, none on the
+   line-parallel path of an sp > 1 mesh.
+
 Every traced window opens with ``PRIME`` spin kernels: once the card has
 idled, the tracer drops the first device records of each window, whatever
 kernel they belong to (``tools/tracer_records.py``), and the spin kernels
@@ -385,10 +399,16 @@ STAGE1 = {  # kernel entry -> the stage1_kernel instantiation (clouds, d2, recon
 PTS = dict(emit_d2=False, emit_recon=False, emit_pts=True)
 FPS_N, FPS_NPOINT, FPS_BATCHES = 8192, 5000, (1, 8)  # the classical cells' clouds and seeds
 CHAMFER_N, CHAMFER_BATCHES = 8192, (1, 8)  # the classical step's monitor, and 8 such pairs
-DCP_STEP = {  # dcp_cal_loss's launches: a training step or an evaluated batch
-    "resample_batched": 1, "stage1_pair_pts": 1, "chamfer": 1}
+DCP_EVAL = {  # dcp_cal_loss's launches in an evaluated batch: the rigid metric's forward
+    "resample_batched": 1, "stage1_pair_pts": 1, "chamfer": 1, "rigid_loss": 1}
+DCP_STEP = {**DCP_EVAL, "rigid_loss_grad": 1}  # a training step: its backward too
 FMR_STEP = {  # fmr_train_loss's: a training step (the evaluation launches none)
-    "resample_batched": 1, "stage1_pair_pts": 3, "chamfer": 1}
+    "resample_batched": 1, "stage1_pair_pts": 3, "chamfer": 1, "rigid_loss": 3,
+    "rigid_loss_grad": 3}
+RIGID_STEP = {"rigid_loss": 1, "rigid_loss_grad": 1}  # the classical step's metric and gradient
+RIGID_SHAPES = ((1, 20000, 5000), (4, 15000, 1024), (8, 10000, 717))  # the cells' (B, L, F)
+RIGID_SPLIT = {"lines": "rl_lines", "median": "rl_median", "terms": "rl_terms",
+               "grad": "rl_grad", "sum": "rl_sum"}  # the rigid metric's kernels a call
 DEV = "cuda"
 
 
@@ -532,22 +552,34 @@ def entry(name, source, replaces, err, ms, call_ms, plain_ms, ops, nbytes, rate,
 
 def counts(IK, RS, PB, reset=False):
     """The launch counters by kernel entry of the JSON line, plus
-    ``stage1_other``, the stage-1 launches of any other instantiation;
-    zeroes them when ``reset``."""
+    ``stage1_other``, the stage-1 launches of any other instantiation, and
+    ``rigid_loss_grad``, the rigid metric's backward calls (``rigid_loss``
+    its forward calls); zeroes them when ``reset``."""
     from a_robust_registration_loss_tpu_torch.ops.cuda import chamfer as CH
     from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
+    from a_robust_registration_loss_tpu_torch.ops.cuda import rigid_loss as RL
 
     if reset:
-        for c in (IK.launches, RS.launches, PB.launches, GK.launches, CH.launches):
+        for c in (IK.launches, RS.launches, PB.launches, GK.launches, CH.launches,
+                  RL.launches):
             c.clear()
     out = {name: IK.launches[IK.instantiation(*key)] for name, key in STAGE1.items()}
     out["stage1_other"] = sum(IK.launches.values()) - sum(out.values())
     out.update(resample_sample_and_hit=RS.launches["single"],
                resample_batched=RS.launches["batched"], probe_fp32_rate=PB.launches["kernel"],
                gather_fwd=GK.launches["fwd"], gather_bwd=GK.launches["bwd_sum"],
-               chamfer=CH.launches["kernel"])
+               chamfer=CH.launches["kernel"], rigid_loss=RL.launches["kernel"],
+               rigid_loss_grad=RL.launches["grad"])
     check(GK.launches["bwd_sort"] == GK.launches["bwd_sum"],
           f"the gather's backward sorted and summed unequally often: {GK.launches}")
+    return out
+
+
+def mixed(want, n, other=None, n_other=0):
+    """The launches of n calls of ``want`` and n_other of ``other``."""
+    out = {k: v * n for k, v in want.items()}
+    for k, v in (other or {}).items():
+        out[k] = out.get(k, 0) + v * n_other
     return out
 
 
@@ -686,6 +718,98 @@ def chamfer_phase(torch, G, CH, rate):
               library_ms=t["library_ms"], shape=[1, CHAMFER_N, CHAMFER_N],
               by_batch={B: {k: v for k, v in t.items() if k not in ("ops", "nbytes")}
                         for B, t in times.items()})
+    return e, launches
+
+
+def rigid_records(torch, G, LN, M, B, L, F):
+    """Stage 1's records of B of ``synthetic_pairs`` at a cell's widths:
+    F FPS + 3-NN neighbourhoods of 4 F points a cloud, L lines through a
+    sphere about the target, each pair's planted motion as (R, t)."""
+    src, tar = (torch.tensor(x, device=DEV) for x in synthetic_pairs(B, 4 * F))
+    n1 = G.sample_neighs(src, F, 3).reshape(B, F, 9)
+    n2 = G.sample_neighs(tar, F, 3).reshape(B, F, 9)
+    gen = gen_on(torch, B + L)
+    u4 = torch.rand((B, 4, LN.ROUNDS * L), generator=gen, device=DEV)
+    lines = LN.resample_lines(u4, torch.full((B,), 1.2, device=DEV), tar.mean(1), L, src, tar)
+    R = torch.stack([torch.tensor(planted_motion(s)[0], dtype=torch.float32) for s in range(B)])
+    t = torch.stack([torch.tensor(planted_motion(s)[1], dtype=torch.float32) for s in range(B)])
+    R, t = R.to(DEV), t.to(DEV)
+    count, pts = M._rigid_stage1(R, t, n1, n2, lines, 4)
+    return R, t, count, pts, lines
+
+
+def aten_rigid(torch, M, R, t, count, pts, lines, cot, kmin=1, K=4):
+    """The ATen path after stage 1 (``rigid_slots``' tail, then ``stage2``)
+    and autograd's backward: (loss, valid, dR, dt) of sum(loss * cot)."""
+    Rg, tg = R.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    p1, p2, c1, c2, _ = M._rigid_tail(Rg, tg, count, pts, lines, K)
+    loss, valid = M.stage2(p1, p2, c1, c2, kmin, K)
+    dR, dt = torch.autograd.grad((loss * cot).sum(), (Rg, tg))
+    return loss.detach(), valid, dR, dt
+
+
+def rigid_loss_phase(torch, G, LN, M, RL, rate):
+    """The rigid metric's kernels at the cells' shapes (phase 26) against
+    the ATen chain they replace. Returns (entry, launches)."""
+    RL.launches.clear()
+    times = {}
+    for B, L, F in RIGID_SHAPES:
+        R, t, count, pts, lines = rigid_records(torch, G, LN, M, B, L, F)
+        if B == 1:  # the classical step's call: no batch axis
+            R, t, count, pts, lines = R[0], t[0], count[0], pts[0], lines[0]
+        cot = torch.ones(R.shape[:-2], device=DEV)
+        before = dict(RL.launches)
+        out = RL.rigid_loss(R, t, count, pts, lines, 1, 4)
+        dR, dt = RL.rigid_loss_grad(R, t, count, pts, lines, 1, 4, out.state, cot)
+        torch.cuda.synchronize()
+        check((RL.launches["kernel"] - before.get("kernel", 0),
+               RL.launches["grad"] - before.get("grad", 0)) == (1, 1),
+              f"rigid_loss B={B}: {dict(RL.launches)} against {before} after one call")
+        loss, valid, gR, gt = aten_rigid(torch, M, R, t, count, pts, lines, cot)
+        ref = RL.rigid_loss_reference(R, t, count, pts, lines, 1, 4)
+        check(torch.equal(out.valid, valid) and bool(valid.all()), f"rigid_loss B={B}: valid")
+        check(torch.equal(out.median, ref.median) and torch.equal(out.n_nonempty, ref.n_nonempty),
+              f"rigid_loss B={B}: the median or the nonempty combos differ from the plain version")
+        check(torch.equal(out.loss, loss), f"rigid_loss B={B}: loss {out.loss} against ATen's {loss}")
+        check(torch.equal(dR, gR) and torch.equal(dt, gt),
+              f"rigid_loss B={B}: dR, dt differ from autograd's by "
+              f"{float((dR - gR).abs().max()):.3g}, {float((dt - gt).abs().max()):.3g}")
+        Rg, tg = R.clone().requires_grad_(True), t.clone().requires_grad_(True)
+
+        def kernels():
+            o = RL.rigid_loss(R, t, count, pts, lines, 1, 4)
+            RL.rigid_loss_grad(R, t, count, pts, lines, 1, 4, o.state, cot)
+
+        def call():  # through intersection_loss_rigid's autograd Function
+            lo, _ = RL.rigid_metric(Rg, tg, count, pts, lines)
+            torch.autograd.grad(lo.sum(), (Rg, tg))
+
+        split = dict(RIGID_SPLIT)
+        times[(B, L)] = dict(
+            ms=kernel_ms(torch, kernels, 20, "rl_", per_call=len(RIGID_SPLIT), split=split),
+            ms_by_kernel=split, call_ms=cuda_ms(torch, call, 20),
+            plain_ms=cuda_ms(torch, lambda: (RL.rigid_loss_reference(R, t, count, pts, lines, 1, 4),
+                                             RL.rigid_grad_reference(R, t, count, pts, lines, 1, 4,
+                                                                     cot)), 5),
+            library_ms=kernel_ms(torch, lambda: aten_rigid(torch, M, R, t, count, pts, lines, cot),
+                                 20),
+            nbytes=RL.nbytes(B, L, 4), loss=out.loss.reshape(-1).tolist(),
+            median=out.median.reshape(-1).tolist())
+        tm = times[(B, L)]
+        bound = bounds(0, tm["nbytes"], rate)[1][0]
+        print(f"rigid_loss B={B} L={L} F={F}: kernels {tm['ms']:.4f} ms a forward and backward "
+              f"({', '.join(f'{k} {v:.4f}' for k, v in split.items())}), call through autograd "
+              f"{tm['call_ms']:.4f} ms, bound {bound:.5f} ms by bytes; the ATen chain "
+              f"{tm['library_ms']:.4f} ms of device time, plain version {tm['plain_ms']:.3f} ms; "
+              f"loss and gradient equal to it bit for bit", flush=True)
+    launches = RL.launches["kernel"]
+    t1 = times[(1, 20000)]
+    e = entry("rigid_loss", "a_robust_registration_loss_tpu_torch/csrc/rigid_loss.cu",
+              "none: XLA, a_robust_registration_loss_tpu/ops/metric.py (stage 2)", 0.0,
+              t1["ms"], t1["call_ms"], t1["plain_ms"], 0, t1["nbytes"], rate,
+              library_ms=t1["library_ms"], shape=[1, 20000, 4],
+              kernels_per_call=len(RIGID_SPLIT), ms_by_kernel=t1["ms_by_kernel"],
+              by_shape={f"{B}x{L}": tm for (B, L), tm in times.items()})
     return e, launches
 
 
@@ -1091,8 +1215,8 @@ def main_path(torch, classical, se3, G, M, IK, RS, PB, LN, data, cfg):
     n = WARMUP + TIMED
     check(losses.shape == (n,) and np.isfinite(losses).all(), "a loss is not finite")
     check(valids.all(), "an epoch had no usable line")
-    check_counts(launches, {"stage1_pair_pts": 1, "resample_sample_and_hit": 1, "chamfer": 1}, n,
-                 "classical path")
+    check_counts(launches, {"stage1_pair_pts": 1, "resample_sample_and_hit": 1, "chamfer": 1,
+                            **RIGID_STEP}, n, "classical path")
     chamfer = [float(G.chamfer_distance(s[None], data["tar"][None]))
                for s in (src_first, carry[2])]
     ms = 1e3 * dt / TIMED
@@ -1234,7 +1358,8 @@ def batch_path(torch, M, IK, RS, PB, LS, se3, src, n1, n2, lines):
                          "bench_loss objective (intersection_loss_batch forward + gradient)")
     profile_phase(torch, lambda: objective(n1, n2, lines), PROFILED2, "objective", ms_obj)
     out, ms, mix = run(lambda: iteration(n1, n2, lines, twists),
-                       {"stage1_d2": 1, "stage1_pair_d2_recon": 1, "stage1_pair_pts": 2},
+                       {"stage1_d2": 1, "stage1_pair_d2_recon": 1, "stage1_pair_pts": 2,
+                        **RIGID_STEP},
                        "batched path (every call of the slice)")
     check(torch.equal(out["api_count"], out["count"]),
           "the stage-1 API and find_intersections count differently")
@@ -1504,7 +1629,7 @@ def dcp_path(torch, mods, cfg, model, batches):
             check(json.load(f) == summary, "Eval.json differs from the returned summary")
         objs = [f for f in os.listdir(tmp) if f.endswith(".obj")]
         check(len(objs) == 4 * B3 * BATCHES3, f"{len(objs)} OBJ files written")
-        check_counts(eval_launches, DCP_STEP, BATCHES3, "DCP evaluate")
+        check_counts(eval_launches, DCP_EVAL, BATCHES3, "DCP evaluate")
         check(all(np.isfinite(v) for v in summary.values()), f"a metric is not finite: {summary}")
         check(summary["loss_intersection"] > 0, "no usable line in the evaluation")
         print(f"DCP evaluate: {BATCHES3} batches of B={B3} N={N3} F={F3} L={L3}, "
@@ -1752,7 +1877,7 @@ def classical_batch_phase(torch, classical, IK, RS, PB, LN, single_its):
     dt = time.perf_counter() - t0
     launches = counts(IK, RS, PB)
     n = WARMUP1 + TIMED1
-    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1}, n,
+    check_counts(launches, {"resample_batched": 1, "stage1_pair_pts": 1, **RIGID_STEP}, n,
                  "classical batch")
     losses = torch.stack(losses).cpu().numpy()
     check(losses.shape == (n, B1) and np.isfinite(losses).all(), "a batched loss is not finite")
@@ -1854,12 +1979,14 @@ def classical_graph_phase(torch, classical, IK, RS, PB, LN, batched):
         src, tar = synthetic_pairs(B1, N_CLOUD)
         data = classical.prepare_pairs(src, tar, cfg, device=DEV)
         step = classical.make_batch_step(cfg, data)
-        per, kinds = B1, {"resample_batched": 1, "stage1_pair_pts": 1, "chamfer": 1}
+        per, kinds = B1, {"resample_batched": 1, "stage1_pair_pts": 1, "chamfer": 1,
+                          **RIGID_STEP}
     else:
         src, tar = synthetic_pair()
         data = classical.prepare_pair(src, tar, cfg, device=DEV)
         step = classical.make_step(cfg, data)
-        per, kinds = 1, {"resample_sample_and_hit": 1, "stage1_pair_pts": 1, "chamfer": 1}
+        per, kinds = 1, {"resample_sample_and_hit": 1, "stage1_pair_pts": 1, "chamfer": 1,
+                         **RIGID_STEP}
     what = f"classical {'batch (B=' + str(B1) + ')' if batched else 'single'} graph"
 
     def init(gen):
@@ -1922,7 +2049,8 @@ def classical_graph_phase(torch, classical, IK, RS, PB, LN, batched):
           f"{graph.counts}", flush=True)
     check(graph.counts == {("stage1", IK.instantiation(*STAGE1["stage1_pair_pts"])): 1,
                            ("resample", "batched" if batched else "single"): 1,
-                           ("chamfer", "kernel"): 1},
+                           ("chamfer", "kernel"): 1, ("rigid_loss", "kernel"): 1,
+                           ("rigid_loss", "grad"): 1},
           f"{what}: the graph's launches per replay {graph.counts}")
     state.clear()
     return g["launches"], dict(graph_its=g["its"], graph_steady_its=steady, eager_its=e["its"],
@@ -2145,8 +2273,8 @@ def demo_phase(torch, demo, IK, RS, PB):
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 launches = counts(IK, RS, PB)
-                check_counts(launches, {resampler: 1, "stage1_pair_pts": 1, "chamfer": 1},
-                             DEMO_EPOCHS, f"demo {kind} {what}")
+                check_counts(launches, {resampler: 1, "stage1_pair_pts": 1, "chamfer": 1,
+                                        **RIGID_STEP}, DEMO_EPOCHS, f"demo {kind} {what}")
                 files = set(os.listdir(out))
                 logged = range(DEMO_LOG_EVERY, DEMO_EPOCHS + 1, DEMO_LOG_EVERY)
                 if what == "single":
@@ -2233,8 +2361,8 @@ def dcp_train_phase(torch, mods, cfg3, batches):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = counts(IK, RS, PB)
-        steps = 2 * len(batches) + 2 * len(tests)  # train steps and eval batches
-        check_counts(launches, DCP_STEP, steps, "DCP train")
+        check_counts(launches, mixed(DCP_STEP, 2 * len(batches), DCP_EVAL, 2 * len(tests)), 1,
+                     "DCP train")
         run = os.path.join(tmp, "run")
         print(f"DCP train: 1 pretrain + 2 epochs of {len(batches)} batches, {len(tests)} "
               f"test batches: {dt:.2f} s; epoch seconds (pretrain, then train with eval, "
@@ -2443,31 +2571,33 @@ def data_phase(torch, mods, tmp):
 
 
 class _Recorder:
-    """Wraps ``LS.batch_lines`` and ``M.rigid_slots`` while it is entered:
-    keeps the lines each call made (or hands ``lines`` out in their place)
-    and the stage-1 counts of every rigid metric call."""
+    """Wraps ``LS.batch_lines`` and ``M._rigid_stage1`` (stage 1 of every
+    rigid metric call, the kernels' path and the plain one) while it is
+    entered: keeps the lines each call made (or hands ``lines`` out in their
+    place) and the stage-1 counts of every rigid metric call, both clouds'
+    side by side."""
 
     def __init__(self, LS, M, lines=None):
         self.LS, self.M, self.given = LS, M, lines
         self.lines, self.counts = [], []
 
     def __enter__(self):
-        self.real = self.LS.batch_lines, self.M.rigid_slots
+        self.real = self.LS.batch_lines, self.M._rigid_stage1
 
         def batch_lines(*a, **k):
             self.lines.append(self.real[0](*a, **k) if self.given is None else self.given)
             return self.lines[-1]
 
-        def rigid_slots(*a, **k):
-            out = self.real[1](*a, **k)
-            self.counts.append(np.concatenate([c.cpu().numpy() for c in out[2:]], axis=-1))
-            return out
+        def rigid_stage1(*a, **k):
+            count, pts = self.real[1](*a, **k)
+            self.counts.append(count.reshape(count.shape[:-2] + (-1,)).cpu().numpy())
+            return count, pts
 
-        self.LS.batch_lines, self.M.rigid_slots = batch_lines, rigid_slots
+        self.LS.batch_lines, self.M._rigid_stage1 = batch_lines, rigid_stage1
         return self
 
     def __exit__(self, *exc):
-        self.LS.batch_lines, self.M.rigid_slots = self.real
+        self.LS.batch_lines, self.M._rigid_stage1 = self.real
 
 
 def fmr_parity(torch, mods, cfg, model, batch, gen):
@@ -2563,7 +2693,7 @@ def fmr_phase(torch, mods, data, tmp):
                  "FMR train (2 epochs of 12 steps, 12 eval batches each)")
     secs = _epoch_seconds(run)
     FP32_RUNS["fmr"] = dict(args=args + ["--epochs", "2"], hist=hist, secs=secs,
-                            per_step=FMR_STEP, steps=2 * steps)
+                            want=mixed(FMR_STEP, 2 * steps))
     print(f"FMR train through train.fmr.main: 2 epochs of {steps} steps of B={B5} N={NP5} "
           f"L={L5} and {len(hist) and 6 * VIEWS5 - TRAIN5} eval pairs at maxiter 10: {dt:.2f} s "
           f"(CLI, data and set-up included); time/epoch_seconds {secs}; train loss "
@@ -2726,10 +2856,10 @@ def dcp_cli_phase(torch, mods, data, tmp):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = counts(IK, RS, PB)
+    want = mixed(DCP_STEP, TRAIN5 // B5, DCP_EVAL, n_test)
     FP32_RUNS["dcp"] = dict(args=args + ["--epochs", "1"], hist=hist, secs=_epoch_seconds(run),
-                            per_step=DCP_STEP, steps=TRAIN5 // B5 + n_test)
-    check_counts(launches, DCP_STEP, TRAIN5 // B5 + n_test,
-                 "DCP CLI train (12 steps, 12 eval batches)")
+                            want=want)
+    check_counts(launches, want, 1, "DCP CLI train (12 steps, 12 eval batches)")
     check(all(np.isfinite(v) for v in hist[0].values()), f"a DCP CLI metric: {hist}")
     counts(IK, RS, PB, reset=True)
     t0 = time.perf_counter()
@@ -2737,7 +2867,7 @@ def dcp_cli_phase(torch, mods, data, tmp):
     torch.cuda.synchronize()
     dt_eval = time.perf_counter() - t0
     eval_launches = counts(IK, RS, PB)
-    check_counts(eval_launches, DCP_STEP, n_test, "DCP CLI --eval_only")
+    check_counts(eval_launches, DCP_EVAL, n_test, "DCP CLI --eval_only")
     with open(os.path.join(run, "eval", "Eval.json")) as f:
         check(json.load(f) == summary, "Eval.json differs from the returned summary")
     check(all(np.isfinite(v) for v in summary.values()), f"Eval.json {summary}")
@@ -2772,7 +2902,8 @@ def dcp_cli_phase(torch, mods, data, tmp):
 L_RPM = 10000  # RPM-Net's lines a sample
 RPM_CLI = []  # more flags for RPM-Net's CLI (none: its full-width defaults)
 RPM_STEPS = {  # launches by kind of step: 2 registration iterations in training, 5 in eval
-    "train": {"resample_batched": 1, "stage1_pair_pts": 2, "gather_fwd": 4, "chamfer": 2},
+    "train": {"resample_batched": 1, "stage1_pair_pts": 2, "gather_fwd": 4, "chamfer": 2,
+              "rigid_loss": 2, "rigid_loss_grad": 2},
     "eval": {"gather_fwd": 10, "chamfer": 1},
     "pretrain": {"gather_fwd": 2},
     "artifact": {"gather_fwd": 10},
@@ -3490,7 +3621,7 @@ def bf16_phase(torch, mods, data, tmp, name):
 
         model, _, hist = {"dcp": TD, "fmr": TF}[name].main(args)
         launches = counts(IK, RS, PB)
-        check_counts(launches, fp32["per_step"], fp32["steps"], f"{name} bf16 train")
+        check_counts(launches, fp32["want"], 1, f"{name} bf16 train")
         paths = {f"{name}_bf16_train": launches}
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -3629,7 +3760,7 @@ SHARD_JOIN_S = 120.0  # the world of 2 ranks, start to finish (17 s on the H100)
 SHARD_UPDATE = 0.25  # the update of 2 steps, relative L2 to one process's
 SHARD_GRAD2 = 5e-3  # the second step's gradient, relative L2 (its second moment: twice)
 SHARD_CLI = (2, 2)  # DCP's CLI: 4 ranks on the one card
-SHARD_STEP = {  # a training step's launches on each rank, whatever the mesh
+SHARD_STEP = {  # a training step's launches on each rank (the rigid metric's under sp = 1)
     "dcp": DCP_STEP, "fmr": FMR_STEP, "rpm": RPM_STEPS["train"]}
 
 
@@ -3706,13 +3837,13 @@ def shard_steps(torch, name, batch, handed=None, mesh=None, timed=0):
     from a_robust_registration_loss_tpu_torch.ops import metric as M
 
     reals = (LS.batch_lines, IK.stage1, RS.sample_and_hit, PM.Mesh.all_reduce,
-             PM.Mesh.all_gather, M.rigid_slots)
+             PM.Mesh.all_gather, M._rigid_stage1)
     slot_counts = []
 
-    def rigid_slots(*args, **kw):
+    def rigid_stage1(*args, **kw):
         got = reals[5](*args, **kw)
         if not drawn or len(drawn) == 1:  # the first step's stage-1 counts
-            slot_counts.append(torch.stack(got[2:]).cpu())
+            slot_counts.append(torch.stack([got[0][..., 0, :], got[0][..., 1, :]]).cpu())
         return got
 
     drawn, inputs, balls, moved = [], [], [], []
@@ -3759,7 +3890,7 @@ def shard_steps(torch, name, batch, handed=None, mesh=None, timed=0):
         return run
 
     LS.batch_lines, IK.stage1, RS.sample_and_hit = lines, stage1, sample_and_hit
-    RM.query_ball_point_excl, M.rigid_slots = ball, rigid_slots
+    RM.query_ball_point_excl, M._rigid_stage1 = ball, rigid_stage1
     PM.Mesh.all_reduce, PM.Mesh.all_gather = collective(reals[3]), collective(reals[4])
     out = dict(loss=[], lines=[])
     if mesh is not None:  # one process's first-step inputs: this rank's rows of them
@@ -3794,7 +3925,7 @@ def shard_steps(torch, name, batch, handed=None, mesh=None, timed=0):
     finally:
         LS.batch_lines, IK.stage1, RS.sample_and_hit = reals[:3]
         PM.Mesh.all_reduce, PM.Mesh.all_gather = reals[3:5]
-        RM.query_ball_point_excl, M.rigid_slots = real_ball, reals[5]
+        RM.query_ball_point_excl, M._rigid_stage1 = real_ball, reals[5]
     return out
 
 
@@ -3938,7 +4069,10 @@ def sharded_phase(torch, mods, data, tmp):
                 check(set(g["swept"]) == {L // sp} and set(g["rows"]) == {B5},
                       f"{what} rank {r}: stage 1 swept {g['swept']}, the resampler took "
                       f"{g['rows']}")
-                check_counts(g["launches"], SHARD_STEP[name], 2, f"{what} rank {r}")
+                # under sp > 1 the metric runs line-parallel on the ATen code
+                expect = {k: v for k, v in SHARD_STEP[name].items()
+                          if sp == 1 or not k.startswith("rigid_loss")}
+                check_counts(g["launches"], expect, 2, f"{what} rank {r}")
                 for k, v in g["launches"].items():
                     total[k] = total.get(k, 0) + v
             loss0 = np.mean([g["loss"][0] for g in got])
@@ -4098,6 +4232,7 @@ def main():
     from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
     from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
     from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
+    from a_robust_registration_loss_tpu_torch.ops.cuda import rigid_loss as RL
     from a_robust_registration_loss_tpu_torch.se3 import se3
     from a_robust_registration_loss_tpu_torch.train import classical
     from a_robust_registration_loss_tpu_torch.train import dcp as TD
@@ -4124,6 +4259,8 @@ def main():
     probe, rate, probe_launches = timed(seconds, "probe", probe_phase, torch, PB)
     fps, fps_launches = timed(seconds, "fps", fps_phase, torch, G, FK, rate)
     chamfer, chamfer_launches = timed(seconds, "chamfer", chamfer_phase, torch, G, CH, rate)
+    rigid, rigid_launches = timed(seconds, "rigid_loss", rigid_loss_phase, torch, G, LN, M, RL,
+                                  rate)
 
     cfg = classical.ClassicalConfig(n_lines=N_LINES, num_sample=N_FACES)
     v1, v2 = synthetic_pair()
@@ -4162,7 +4299,7 @@ def main():
               m["err"], m["ms"], m["call_ms"], m["plain_ms"], m["ops"], m["nbytes"], rate,
               shape=m["shape"])
         for name, m in modes.items() if name != "stage1_pair_pts"] + [
-            resample, resample_batched, probe, fps, chamfer]
+            resample, resample_batched, probe, fps, chamfer, rigid]
     p2 = modes["stage1_pair_pts"]
     (mb, _), (db, _) = bounds(p2["ops"], p2["nbytes"], rate)
     pts.update(config2_shape=p2["shape"], config2_ms=p2["ms"],
@@ -4243,6 +4380,7 @@ def main():
           + json.dumps({name: numbers for name, (_, numbers) in bf16.items()}), flush=True)
     paths = {"probe": {"probe_fp32_rate": probe_launches}, "fps": {"fps": fps_launches},
              "chamfer": {"chamfer": chamfer_launches},
+             "rigid_loss": {"rigid_loss": rigid_launches},
              "prepare_pair": {"fps": 2}, "classical": classical_launches,
              "bench_loss_objective": objective, "batched_metric": mix,
              "dcp_evaluate": dcp_eval, "dcp_forward_gradient": dcp_grad,

@@ -69,7 +69,17 @@ the dot in an order of its own: each path's rounding leaves its mean up
 to 1.2e-5 relative off the float64 one), one launch a call, two calls equal bit for
 bit, NaN where the plain version has NaN, near-coincident points whose
 expansion goes negative, one launch an epoch through the classical step's
-graph, and a raise on an input that requires grad while grad mode is on.
+graph, and a raise on an input that requires grad while grad mode is on;
+and the rigid metric's kernels (``ops/cuda/rigid_loss.py``) against the ATen
+path with autograd on the same stage-1 records, at the cells' shapes ((1,
+20,000) unbatched, (4, 15,000), (8, 10,000), kmin 1 and 2) and on planted
+records (ties in row and column minima, empty slots, invalid lines, a
+sample with no usable line, kmax 2, 3 and 8, ragged rows, sums ATen splits
+over 20 blocks, a median of exactly 0): validity, nonempty combos and the
+median equal to the plain version's, the loss equal to the ATen path's and
+dR and dt to autograd's bit for bit (NaN where theirs are), one forward and
+one backward call counted a call, a CUDA graph's replay equal to the eager
+call, and none of its calls on the line-parallel path of the sp = 2 ranks.
 """
 
 import numpy as np
@@ -86,6 +96,7 @@ from a_robust_registration_loss_tpu_torch.ops.cuda import gather as GK
 from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
 from a_robust_registration_loss_tpu_torch.ops.cuda import probe as PB
 from a_robust_registration_loss_tpu_torch.ops.cuda import resample as RS
+from a_robust_registration_loss_tpu_torch.ops.cuda import rigid_loss as RL
 from a_robust_registration_loss_tpu_torch.se3 import se3
 from a_robust_registration_loss_tpu_torch.train import classical as TC
 from a_robust_registration_loss_tpu_torch.train import dcp as TD
@@ -600,6 +611,168 @@ def test_generic_metric_and_glue_on_card(cuda_device):
     assert np.linalg.norm(grk - grp) <= 5e-4 * np.linalg.norm(grp)
 
 
+def _rigid_records(device, B, L, F, seed):
+    """Stage 1's records (count, slot points) of B synthetic pairs at a
+    cell's widths, made on the card: noisy Fibonacci ellipsoids of 4 F
+    points, F FPS + 3-NN neighbourhoods a cloud, L lines through a sphere
+    about the target, a small motion a sample."""
+    src = torch.tensor(np.stack([_cloud(4 * F, seed + b) for b in range(B)]), device=device)
+    tar = torch.tensor(np.stack([_cloud(4 * F, seed + 50 + b) for b in range(B)]), device=device)
+    n1 = G.sample_neighs(src, F, 3).reshape(B, F, 9)
+    n2 = G.sample_neighs(tar, F, 3).reshape(B, F, 9)
+    g = torch.Generator(device=device).manual_seed(seed)
+    u4 = torch.rand((B, 4, LN.ROUNDS * L), generator=g, device=device)
+    lines = LN.resample_lines(u4, torch.full((B,), 1.2, device=device), tar.mean(1), L, src, tar)
+    R, t = se3.exp3(torch.randn((B, 6), generator=g, device=device) * 0.05)
+    count, pts = M._rigid_stage1(R, t, n1, n2, lines, 4)
+    return R, t, count, pts, lines
+
+
+def _crafted_records(device, B, L, K, seed, ties=False, invalid_sample=False):
+    """Slot records as stage 1 leaves them (tests/test_torch_rigid_loss.py's
+    ``crafted``): counts 0 to K + 2, slot points 0 where empty; ``ties``
+    puts two slots of each cloud on the same grid points, so minima tie;
+    ``invalid_sample`` leaves the last sample no usable line."""
+    g = torch.Generator().manual_seed(seed)
+    count = torch.randint(0, K + 3, (B, 2, L), generator=g, dtype=torch.int32)
+    pts = torch.randn((B, 2, L, K, 3, 3), generator=g) * 0.3
+    if ties and K > 1:
+        pts = torch.round(pts * 8) / 8
+        pts[:, :, :, 1] = pts[:, :, :, 0]
+    if invalid_sample:
+        count[-1] = 0
+    filled = torch.arange(K)[None, None, None, :] < torch.clamp_max(count, K)[..., None]
+    pts = torch.where(filled[..., None, None], pts, 0.0)
+    dirs = torch.randn((B, L, 3), generator=g)
+    lines = torch.cat([dirs / dirs.norm(dim=-1, keepdim=True),
+                       torch.randn((B, L, 3), generator=g) * 0.2], -1)
+    R, t = se3.exp3(torch.randn((B, 6), generator=g) * 0.1)
+    return [x.to(device) for x in (R, t, count, pts, lines)]
+
+
+def _aten_rigid(R, t, count, pts, lines, kmin, K, cot):
+    """The ATen path after stage 1 (``rigid_slots``' tail, then ``stage2``)
+    with autograd: (loss, valid, dR, dt) of sum(loss * cot)."""
+    Rg, tg = R.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    p1, p2, c1, c2, _ = M._rigid_tail(Rg, tg, count, pts, lines, K)
+    loss, valid = M.stage2(p1, p2, c1, c2, kmin, K)
+    dR, dt = torch.autograd.grad((loss * cot).sum(), (Rg, tg))
+    return loss.detach(), valid, dR, dt
+
+
+def _same(a, b):
+    """Equal bit for bit, NaN where the other is NaN."""
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)))
+
+
+def _check_rigid(R, t, count, pts, lines, kmin, K, cot):
+    """The kernels against the ATen path with autograd and the plain
+    versions on the same records: valid, n_nonempty and the median equal,
+    the loss equal (so within 1e-6), dR and dt equal (so within 1e-5
+    relative L2); one forward and one backward call counted."""
+    before = dict(RL.launches)
+    out = RL.rigid_loss(R, t, count, pts, lines, kmin, K)
+    dR, dt = RL.rigid_loss_grad(R, t, count, pts, lines, kmin, K, out.state, cot)
+    torch.cuda.synchronize()
+    assert (RL.launches["kernel"] - before.get("kernel", 0),
+            RL.launches["grad"] - before.get("grad", 0)) == (1, 1)
+    loss, valid, gR, gt = _aten_rigid(R, t, count, pts, lines, kmin, K, cot)
+    ref = RL.rigid_loss_reference(R, t, count, pts, lines, kmin, K)
+    rR, rt = RL.rigid_grad_reference(R, t, count, pts, lines, kmin, K, cot)
+    assert torch.equal(out.valid, valid) and torch.equal(out.valid, ref.valid)
+    assert torch.equal(out.n_nonempty, ref.n_nonempty)
+    assert torch.equal(out.median, ref.median)
+    assert _same(out.loss, loss) and _same(ref.loss, loss)
+    for got, plain, want in ((dR, rR, gR), (dt, rt, gt)):
+        assert _same(got, want) and _same(plain, want)
+    return out
+
+
+RIGID_SHAPES = [(1, 20000, 5000), (4, 15000, 1024), (8, 10000, 717)]  # the cells' (B, L, F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kmin", [1, 2])
+@pytest.mark.parametrize("shape", RIGID_SHAPES, ids=lambda s: "x".join(map(str, s[:2])))
+def test_rigid_loss_kernels_equal_the_aten_path(cuda_device, shape, kmin):
+    """At the cells' shapes (the classical step unbatched), with the
+    incoming gradient of a weighted sum."""
+    B, L, F = shape
+    R, t, count, pts, lines = _rigid_records(cuda_device, B, L, F, 7 * B + kmin)
+    cot = torch.rand(B, device=cuda_device) + 0.5
+    if B == 1:
+        R, t, count, pts, lines, cot = R[0], t[0], count[0], pts[0], lines[0], cot[0]
+    out = _check_rigid(R, t, count, pts, lines, kmin, 4, cot)
+    assert bool(out.valid.all()) and bool((out.n_nonempty > 1).all())
+
+
+RIGID_CASES = {  # (B, L, K, kmin, ties, invalid sample)
+    "ties": (2, 4000, 4, 1, True, False),
+    "ties_kmin2_invalid_sample": (3, 2000, 4, 2, True, True),
+    "kmax2": (2, 500, 2, 1, False, False),
+    "kmax3_ragged_rows": (2, 777, 3, 1, True, False),
+    "kmax8": (4, 100, 8, 3, True, False),
+    "scalar_sums": (1, 30, 4, 1, False, False),
+    "sums_over_20_blocks": (1, 45000, 4, 1, False, False),
+    "batch_sums_over_20_blocks": (5, 40000, 4, 1, False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RIGID_CASES))
+def test_rigid_loss_kernels_on_planted_records(cuda_device, case):
+    """Planted ties (shared evenly, as amin's backward shares them), empty
+    slots, invalid lines, a sample with no usable line, kmax 2, 3 and 8,
+    rows that start off 16 bytes, sums small enough for scalar loads and
+    sums ATen splits over 20 blocks."""
+    B, L, K, kmin, ties, invalid = RIGID_CASES[case]
+    R, t, count, pts, lines = _crafted_records(cuda_device, B, L, K, B + L, ties, invalid)
+    out = _check_rigid(R, t, count, pts, lines, kmin, K,
+                       torch.rand(B, device=cuda_device) + 0.5)
+    if invalid:
+        assert not bool(out.valid[-1]) and float(out.loss[-1]) == 0.0
+
+
+@pytest.mark.cuda
+def test_rigid_loss_zero_median_is_nan_and_valid(cuda_device):
+    """Every valid pair at distance 0: the median 0, the loss and the
+    gradient NaN where autograd's are, valid True."""
+    _, _, count, pts, lines = _crafted_records(cuda_device, 1, 500, 4, 3)
+    count = torch.ones_like(count)
+    pts[:, 1] = pts[:, 0]
+    R, t = torch.eye(3, device=cuda_device)[None], torch.zeros((1, 3), device=cuda_device)
+    out = _check_rigid(R, t, count, pts, lines, 1, 4, torch.ones(1, device=cuda_device))
+    assert float(out.median) == 0.0 and bool(out.valid) and bool(torch.isnan(out.loss).all())
+
+
+@pytest.mark.cuda
+def test_rigid_loss_graph_replay_equals_the_eager_call(cuda_device):
+    """The forward and backward kernels captured in a CUDA graph: every
+    replay equals the eager call bit for bit (no float atomics)."""
+    R, t, count, pts, lines = (x[0] for x in _rigid_records(cuda_device, 1, 20000, 5000, 3))
+    one = torch.ones((), device=cuda_device)
+
+    def call():
+        out = RL.rigid_loss(R, t, count, pts, lines, 1, 4)
+        return (out.loss, out.valid, out.median, out.n_nonempty,
+                *RL.rigid_loss_grad(R, t, count, pts, lines, 1, 4, out.state, one))
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
 @pytest.mark.cuda
 def test_batched_wrappers_raise_on_what_they_cannot_take(cuda_device):
     lines = torch.zeros((2, 5, 6), device=cuda_device)
@@ -1021,6 +1194,10 @@ def test_wrappers_refuse_a_bf16_input(cuda_device):
                        torch.zeros((1, 3), dtype=torch.int64, device=cuda_device))
     with pytest.raises(ValueError, match="float32"):
         PB.logistic_map(torch.zeros(8, **bf), 1)
+    with pytest.raises(ValueError, match="float32"):
+        RL.rigid_loss(torch.eye(3, **bf), torch.zeros(3, **f32),
+                      torch.zeros((2, 5), dtype=torch.int32, device=cuda_device),
+                      torch.zeros((2, 5, 4, 3, 3), **f32), torch.zeros((5, 6), **f32), 1, 4)
 
 
 @pytest.mark.cuda
@@ -1028,11 +1205,14 @@ def test_sp2_step_on_one_card_over_gloo(cuda_device, tmp_path):
     import torch_parallel_ranks as TR
 
     p = TR.problem(B=4)
+    RL.launches.clear()
     v, dR, dt = TR.metric_rt(p, device="cuda")
+    assert dict(RL.launches) == {"kernel": 1, "grad": 1}
     loss, new = TR.classical_step(p, device="cuda")
     L = p["lines"].shape[1]
     for out in TR.launch(TR.card_sp2, 1, 2, tmp_path, args=(p,), device="cuda"):
         assert out["swept"] == [L // 2, L // 2] and out["launches"] == 2
+        assert out["rigid_launches"] == 0  # the line-parallel path keeps the ATen code
         assert torch.equal(out["v"], v.cpu())
         for got, want in ((out["dR"], dR), (out["dt"], dt)):
             assert float((got - want.cpu()).norm() / want.norm()) <= 1e-5
@@ -1052,10 +1232,12 @@ def _classical_runs(device, n_epochs, modes):
         IK.launches.clear()
         RS.launches.clear()
         CH.launches.clear()
+        RL.launches.clear()
         carry, hist = TC._loop(cfg, TC.make_step(cfg, data), params, data["src"], g, None,
                                mode=mode)
         torch.cuda.synchronize()
-        out[mode] = carry, hist, (dict(IK.launches), dict(RS.launches), dict(CH.launches))
+        out[mode] = carry, hist, (dict(IK.launches), dict(RS.launches), dict(CH.launches),
+                                  dict(RL.launches))
     return out
 
 
@@ -1076,13 +1258,14 @@ def test_classical_graph_replay_equals_the_eager_step(cuda_device):
 @pytest.mark.cuda
 def test_graph_launch_counters_count_per_replay(cuda_device):
     """A graph's run counts one stage-1, one resampler and one chamfer launch
-    an epoch, as the eager loop does: the capture's count is taken back,
+    an epoch, and one forward and one backward call of the rigid metric's
+    kernels, as the eager loop does: the capture's count is taken back,
     each replay adds it."""
     from a_robust_registration_loss_tpu_torch.train import graphs
 
     runs = _classical_runs(cuda_device, 7, ("eager", "graph"))
     pts = IK.instantiation(2, False, False, True)
-    want = ({pts: 7}, {"single": 7}, {"kernel": 7})
+    want = ({pts: 7}, {"single": 7}, {"kernel": 7}, {"kernel": 7, "grad": 7})
     assert runs["eager"][2] == want and runs["graph"][2] == want
     x = torch.zeros(4, device=cuda_device)
     IK.launches.clear()

@@ -342,6 +342,7 @@ def card_sp2(m, p):
     """A world of 2 sharing one card over gloo, under (1, 2): the rigid
     metric and one classical step, and the lines of each stage-1 launch."""
     from a_robust_registration_loss_tpu_torch.ops.cuda import intersect as IK
+    from a_robust_registration_loss_tpu_torch.ops.cuda import rigid_loss as RL
 
     swept, real = [], IK.stage1
 
@@ -352,10 +353,11 @@ def card_sp2(m, p):
     IK.stage1 = counted
     try:
         IK.launches.clear()
+        RL.launches.clear()
         v, dR, dt = metric_rt(p, m, device="cuda")
         loss, new = classical_step(p, m, device="cuda")
         torch.cuda.synchronize()
     finally:
         IK.stage1 = real
     return dict(v=v.cpu(), dR=dR.cpu(), dt=dt.cpu(), loss=loss, new=new.cpu(), swept=swept,
-                launches=sum(IK.launches.values()))
+                launches=sum(IK.launches.values()), rigid_launches=sum(RL.launches.values()))
